@@ -1,0 +1,99 @@
+"""Keyframe motion filter (port of ``vipe_tpu/slam/motion_filter.py``, the
+synchronous ``check`` path).
+
+Every frame is encoded; one ConvGRU update against the last keyframe's
+features gives a flow delta whose mean magnitude gates keyframe creation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..ops import corr as corr_ops
+from ..ops import geom
+
+
+@dataclasses.dataclass
+class _Token:
+    image: torch.Tensor            # (1, h, w, 3) uint8
+    fmap: torch.Tensor             # (1, ht, wd, 128)
+    mask: Optional[torch.Tensor]   # (1, ht, wd) bool, True = invalid
+    first: bool = False
+
+
+class MotionFilter:
+    def __init__(self, encode_features: Callable, encode_context: Callable,
+                 update_fn: Callable, thresh: float):
+        """``encode_*(images_nhwc)``; ``update_fn`` as in ``FactorGraph``."""
+        self.encode_features = encode_features
+        self.encode_context = encode_context
+        self.update_fn = update_fn
+        self.thresh = thresh
+        self.initialized = False
+        self.f_fmap = self.f_net = self.f_inp = self.f_mask = None
+
+    @property
+    def _decision_fixed(self):
+        """True/False when the threshold makes every decision constant
+        (negative: every frame; +inf: none) — the score is then skipped."""
+        if self.thresh == float("inf"):
+            return False
+        if self.thresh < 0:
+            return True
+        return None
+
+    def _score(self, fmap) -> float:
+        """One GRU iteration against the stored keyframe → mean flow-delta
+        magnitude (masked where the keyframe mask is invalid)."""
+        V, ht, wd = fmap.shape[:3]
+        coords0 = geom.coords_grid(ht, wd, fmap.device).expand(V, ht, wd, 2).contiguous()
+        pyr = corr_ops.corr_pyramid(self.f_fmap.float(), fmap.float())
+        corr = corr_ops.corr_lookup_pyramid(pyr, coords0)
+        motn = torch.zeros((V, ht, wd, 4), device=fmap.device)
+        zeros = torch.zeros((V,), dtype=torch.long, device=fmap.device)
+        _, delta, _, _ = self.update_fn(self.f_net, self.f_inp, corr, motn, zeros, zeros, 1)
+        flow_mag = torch.linalg.norm(delta, dim=-1)
+        if self.f_mask is not None:
+            w = (~self.f_mask).float()
+            per_view = (flow_mag * w).mean((1, 2)) / (w.mean((1, 2)) + 1e-6)
+        else:
+            per_view = flow_mag.mean((1, 2))
+        return float(per_view.min())
+
+    def _promote(self, token: _Token):
+        self.f_net, self.f_inp = self.encode_context(token.image)
+        self.f_fmap = token.fmap
+        self.f_mask = token.mask
+
+    def submit(self, image, mask=None) -> _Token:
+        """Encode one frame: ``image`` (h, w, 3) uint8, ``mask`` (ht, wd)."""
+        image = image[None]
+        mask = None if mask is None else mask[None]
+        tok = _Token(image, self.encode_features(image), mask)
+        if not self.initialized:
+            self.initialized = True
+            tok.first = True
+            self._promote(tok)
+        return tok
+
+    def resolve(self, token: _Token) -> bool:
+        """Whether the submitted frame is a keyframe (promoting it if so)."""
+        if token.first:
+            return True
+        fixed = self._decision_fixed
+        if fixed is not None:
+            if fixed:
+                self._promote(token)
+            return fixed
+        if self._score(token.fmap) > self.thresh:
+            self._promote(token)
+            return True
+        return False
+
+    @property
+    def last_keyframe_features(self):
+        """(fmap, net, inp) of the current keyframe reference."""
+        return self.f_fmap[0], self.f_net[0], self.f_inp[0]
