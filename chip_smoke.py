@@ -15,14 +15,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with int8 volumes + per-edge scales, and on an odd 7×9 grid with clamped
    levels and out-of-bounds coords; times the kernel, the plain version and
    ``grid_sample`` (the yardstick, never used by the port);
-4. checks the SLAM machinery on the card against ground truth: a tiny
+4. holds K2 (``corr_fused``) against its plain version at the same frontend
+   shape (packed features, C = 128) and on the odd grid; times the kernel,
+   the plain version and the route it replaces (``corr_pyramid`` + K1);
+5. checks the SLAM machinery on the card against ground truth: a tiny
    synthetic scene whose update operator is a geometric oracle (GT flow,
    unit weights) must give back the GT trajectory;
-5. drives the main path: a seeded synthetic 720p stream through
+6. drives three main paths, each a seeded synthetic 720p stream through
    ``DefaultAnnotationPipeline`` on ``cuda`` (random DroidNet weights from a
    seed), with the kernels' launch counts set to 0 just before and read
-   just after; prints frames, keyframes, wall seconds, fps, peak memory;
-6. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
+   just after: the default (volume, bf16), ``slam.corr_mode: alt``,
+   ``slam.corr_dtype: int8`` and the default again; prints frames,
+   keyframes, wall seconds, fps, peak memory (overall and per stage), stage
+   host seconds and launches of each;
+7. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 It exits non-zero without a result when no CUDA card is present, and in a
 directory that does not hold the ``vipe_tpu_torch`` package.
@@ -30,6 +36,7 @@ directory that does not hold the ``vipe_tpu_torch`` package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -43,6 +50,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 
 MAIN_FRAMES = 32
 MAIN_KEYFRAMES = 12  # about one frame in three, the rate trained weights give on footage
@@ -236,6 +244,121 @@ def kernel_phase():
     return record
 
 
+def _fused_bound(packed, coords, radius: int = 3):
+    """Least bytes and operations of one K2 call on this data: f1, the
+    distinct f2 entries the (2r+2)² neighbourhoods of each edge touch
+    (clipped to each plane), the coords and the f32 output; 2·C per
+    in-plane dot plus 4 multiply-adds per output element."""
+    import torch
+
+    f1, f2_pyr = packed[0], packed[1:]
+    E, h1, w1, C = f1.shape
+    span = 2 * radius + 2
+    n_out = E * h1 * w1 * len(f2_pyr) * (2 * radius + 1) ** 2
+    offs = torch.arange(span, device=coords.device) - radius
+    edge = torch.arange(E, device=coords.device).repeat_interleave(h1 * w1)
+    touched = dots = 0
+    for lvl, f2 in enumerate(f2_pyr):
+        h2, w2 = f2.shape[1:3]
+        c = coords.reshape(-1, 2) / float(2 ** lvl)
+        xs = torch.floor(c[:, 0]).long()[:, None] + offs
+        ys = torch.floor(c[:, 1]).long()[:, None] + offs
+        okx, oky = (xs >= 0) & (xs < w2), (ys >= 0) & (ys < h2)
+        ok = oky[:, :, None] & okx[:, None, :]
+        dots += int(ok.sum().item())
+        idx = edge[:, None, None] * (h2 * w2) + ys[:, :, None] * w2 + xs[:, None, :]
+        seen = torch.zeros(E * h2 * w2, dtype=torch.bool, device=coords.device)
+        seen[idx[ok]] = True
+        touched += int(seen.sum().item())
+    moved = f1.numel() * 2 + touched * C * 2 + coords.numel() * 4 + n_out * 4
+    ops = 2 * C * dots + 8 * n_out
+    return moved, ops
+
+
+def fused_kernel_phase():
+    """K2 against its plain version; returns the K2 record (without its
+    main-path launch count)."""
+    import torch
+
+    from vipe_tpu_torch.ops import corr as corr_ops
+    from vipe_tpu_torch.ops import corr_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    E, ht, wd, C = FRONTEND_EDGES, 41, 73, 128
+    f1 = torch.randn((E, ht, wd, C), generator=g, device=dev).to(torch.bfloat16)
+    f2 = torch.randn((E, ht, wd, C), generator=g, device=dev).to(torch.bfloat16)
+    packed = corr_ops.corr_feat_pack(f1, f2)
+    grid = torch.stack(torch.meshgrid(
+        torch.arange(wd, device=dev, dtype=torch.float32),
+        torch.arange(ht, device=dev, dtype=torch.float32), indexing="xy"), dim=-1)
+    coords = (grid + 2.0 * torch.randn((E, ht, wd, 2), generator=g, device=dev)).contiguous()
+
+    cases = {}
+    out_k = ck.corr_fused(packed[0], packed[1:], coords)
+    out_p = ck.corr_fused_plain(packed[0], packed[1:], coords)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    cases["frontend_packed_bf16"] = {"max_abs_err": err, "tol": 1e-4,
+                                     "shape": [E, ht, wd, 196]}
+
+    # odd grid, clamped 1-px levels, coords far outside and on integers
+    Eo, ho, wo = 3, 7, 9
+    po = corr_ops.corr_feat_pack(
+        torch.randn((Eo, ho, wo, C), generator=g, device=dev),
+        torch.randn((Eo, ho, wo, C), generator=g, device=dev))
+    co = torch.rand((Eo, ho, wo, 2), generator=g, device=dev) * 32.0 - 12.0
+    co[0, 0, 0] = torch.tensor([-1.0e6, 3.0])
+    co[0, 0, 1] = torch.tensor([4.0, 1.0e6])
+    co[1, 2] = torch.round(co[1, 2])
+    co[2, 3] = float("-40.0")
+    out_ko = ck.corr_fused(po[0], po[1:], co.contiguous())
+    out_po = ck.corr_fused_plain(po[0], po[1:], co.contiguous())
+    cases["odd_grid_oob"] = {
+        "max_abs_err": float((out_ko - out_po).abs().max()), "tol": 1e-5,
+        "levels": [list(p.shape[1:3]) for p in po[1:]],
+        "oob_exact_zero": bool((out_ko[2, 3] == 0).all()),
+    }
+    for name, c in cases.items():
+        if not c["max_abs_err"] <= c["tol"]:
+            raise AssertionError(f"K2 {name}: max abs err {c['max_abs_err']} > {c['tol']}")
+    if not cases["odd_grid_oob"]["oob_exact_zero"]:
+        raise AssertionError("K2: fully out-of-plane windows are not exactly 0")
+
+    ms = _cuda_ms(lambda: ck.corr_fused(packed[0], packed[1:], coords), 20)
+    plain_ms = _cuda_ms(lambda: ck.corr_fused_plain(packed[0], packed[1:], coords), 3)
+    volume_route_ms = _cuda_ms(
+        lambda: ck.corr_lookup(corr_ops.corr_pyramid(f1, f2), coords), 10)
+    moved, ops = _fused_bound(packed, coords)
+    bytes_s, ops_s = moved / HBM_BYTES_PER_S, ops / BF16_TENSOR_FLOPS_PER_S
+    record = {
+        "name": "corr_fused (K2)",
+        "route": "cuda",
+        "source": "vipe_tpu_torch/csrc/corr_fused.cu",
+        "replaces": "vipe_tpu/ops/pallas_corr.py:161",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "library_ms": None,
+        "library": "none: no single PyTorch call forms the windowed dots without the "
+                   "volume",
+        "replaced_route_ms": volume_route_ms,
+        "replaced_route": "corr_pyramid (cuBLAS bmm, bf16 volumes) + K1, same features",
+        "cuda_core_bound_ms": ops / F32_FLOPS_PER_S * 1e3,
+        "bound_bytes": moved,
+        "bound_ops": ops,
+        "shape": {"E": E, "h1": ht, "w1": wd, "C": C,
+                  "levels": [list(p.shape[1:3]) for p in packed[1:]], "dtype": "bf16"},
+        "cases": cases,
+    }
+    del packed, out_k, out_p, f1, f2
+    torch.cuda.empty_cache()
+    return record
+
+
 # ------------------------------------------------------- oracle (ground truth)
 
 
@@ -393,48 +516,96 @@ def calibrate_filter_thresh(stream, n_keyframes: int) -> float:
     return float(min(cands, key=lambda t: (abs(n_kf(t) - n_keyframes), -t)))
 
 
-def main_path_phase(counters):
+@contextlib.contextmanager
+def stage_peaks():
+    """While active, every ``profiling.stage`` also records the device's
+    peak allocated bytes inside it (nested stages fold into their parent's
+    peak); yields the dict {stage: peak GiB}.  The peak counter is reset at
+    each stage boundary, so read the run's overall peak from the dict's
+    maximum and ``torch.cuda.max_memory_allocated()`` together."""
     import torch
 
+    from vipe_tpu_torch.utils import profiling
+
+    orig = profiling.stage
+    peaks: dict = {}
+    stack = [0]
+
+    @contextlib.contextmanager
+    def stage(name):
+        stack[-1] = max(stack[-1], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        stack.append(0)
+        try:
+            with orig(name):
+                yield
+        finally:
+            peak = max(stack.pop(), torch.cuda.max_memory_allocated())
+            peaks[name] = max(peaks.get(name, 0.0), peak / 2 ** 30)
+            stack[-1] = max(stack[-1], peak)
+            torch.cuda.reset_peak_memory_stats()
+
+    profiling.stage = stage
+    try:
+        yield peaks, stack
+    finally:
+        profiling.stage = orig
+
+
+def main_path_phase(label, slam_cfg, n_frames, thresh, required):
+    """One run of the main path with ``slam_cfg`` over ``n_frames`` of the
+    seeded stream.  ``required`` names the launch counts that must be > 0."""
+    import gc
+
+    import torch
+
+    from vipe_tpu_torch.ops import corr_kernels as ck
     from vipe_tpu_torch.pipeline.default import DefaultAnnotationPipeline
     from vipe_tpu_torch.utils import profiling
 
-    stream = synth_stream(MAIN_FRAMES)
-    thresh = calibrate_filter_thresh(stream, MAIN_KEYFRAMES)
+    stream = synth_stream(n_frames)
     pipe = DefaultAnnotationPipeline(
         init={"intrinsics": "fov", "fov_deg": 60.0},
-        slam={"optimize_intrinsics": True, "filter_thresh": thresh},
+        slam={"optimize_intrinsics": True, "filter_thresh": thresh, **slam_cfg},
         output={"path": None}, device="cuda", return_payload=True,
     )
+    gc.collect()
+    torch.cuda.empty_cache()
     profiling.snapshot(reset=True)
     torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    out = pipe.run(stream)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counters}
+    ck.corr_lookup.launches = ck.corr_lookup.int8_launches = ck.corr_fused.launches = 0
+    with stage_peaks() as (peaks, top):
+        t0 = time.perf_counter()
+        out = pipe.run(stream)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"corr_lookup": ck.corr_lookup.launches,
+                "corr_lookup_int8": ck.corr_lookup.int8_launches,
+                "corr_fused": ck.corr_fused.launches}
+    peak = max(top[0], torch.cuda.max_memory_allocated())
     stages = profiling.snapshot(reset=True)
 
     slam_out = out.payload["slam_output"]
     traj = np.asarray(out.trajectory)
-    if traj.shape != (MAIN_FRAMES, 7) or not np.isfinite(traj).all():
-        raise AssertionError(f"main path: trajectory {traj.shape} not finite / wrong shape")
+    if traj.shape != (n_frames, 7) or not np.isfinite(traj).all():
+        raise AssertionError(f"{label} main path: trajectory {traj.shape} not finite / wrong shape")
     if not np.isfinite(out.intrinsics).all() or out.intrinsics.shape != (4,):
-        raise AssertionError(f"main path: intrinsics {out.intrinsics}")
+        raise AssertionError(f"{label} main path: intrinsics {out.intrinsics}")
     quat_norm = np.linalg.norm(traj[:, 3:], axis=-1)
     if not np.allclose(quat_norm, 1.0, atol=1e-3):
-        raise AssertionError("main path: rotations are not unit quaternions")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"main path did not launch {name}")
+        raise AssertionError(f"{label} main path: rotations are not unit quaternions")
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"{label} main path did not launch {name}")
     return {
-        "frames": MAIN_FRAMES, "resolution": [MAIN_H, MAIN_W],
+        "label": label, "slam": slam_cfg,
+        "frames": n_frames, "resolution": [MAIN_H, MAIN_W],
         "keyframes": int(len(slam_out.keyframes)), "filter_thresh": thresh,
-        "wall_s": wall, "fps": MAIN_FRAMES / wall,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "wall_s": wall, "fps": n_frames / wall,
+        "peak_mem_gib": peak / 2 ** 30, "resident_before_gib": resident / 2 ** 30,
+        "stage_peak_mem_gib": peaks,
         "launches": launches,
         "stages_host_s": stages,
         "intrinsics": [float(x) for x in out.intrinsics],
@@ -454,7 +625,6 @@ def main():
                       "python": sys.version.split()[0]}), flush=True)
 
     from vipe_tpu_torch.ops import _build
-    from vipe_tpu_torch.ops import corr_kernels as ck
 
     t0 = time.perf_counter()
     built = _build.build_all()
@@ -462,14 +632,27 @@ def main():
                       "libraries": [p.name for p in built]}), flush=True)
 
     k1 = kernel_phase()
-    print(json.dumps({"kernel_check": k1["cases"]}), flush=True)
+    print(json.dumps({"kernel_check": {"K1": k1["cases"]}}), flush=True)
+    k2 = fused_kernel_phase()
+    print(json.dumps({"kernel_check": {"K2": k2["cases"]}}), flush=True)
     print(json.dumps({"oracle": oracle_phase()}), flush=True)
 
-    main_path = main_path_phase([ck.corr_lookup])
-    print(json.dumps({"main_path": main_path}), flush=True)
+    thresh = calibrate_filter_thresh(synth_stream(MAIN_FRAMES), MAIN_KEYFRAMES)
+    runs = [
+        ("volume", {}, MAIN_FRAMES, ["corr_lookup"]),
+        ("alt", {"corr_mode": "alt"}, MAIN_FRAMES, ["corr_lookup", "corr_fused"]),
+        ("int8", {"corr_dtype": "int8"}, MAIN_FRAMES, ["corr_lookup", "corr_lookup_int8"]),
+        # the first run again: how far host-bound times drift within one call
+        ("volume_again", {}, MAIN_FRAMES, ["corr_lookup"]),
+    ]
+    main_paths = {}
+    for label, cfg, n_frames, required in runs:
+        main_paths[label] = main_path_phase(label, cfg, n_frames, thresh, required)
+        print(json.dumps({"main_path": main_paths[label]}), flush=True)
 
-    k1["launches"] = main_path["launches"]["corr_lookup"]
-    print(json.dumps({"kernels": [k1]}), flush=True)
+    k1["launches"] = main_paths["volume"]["launches"]["corr_lookup"]
+    k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

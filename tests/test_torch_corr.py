@@ -81,6 +81,18 @@ class TestPyramid:
         np.testing.assert_allclose(tcorr.avg_pool2_nhwc(torch.from_numpy(xn)).numpy(),
                                    np.asarray(jcorr.avg_pool2_nhwc(jnp.asarray(xn))), atol=1e-6)
 
+    @pytest.mark.parametrize("hw", [(6, 8), (7, 9), (1, 3)])
+    def test_avg_pool2_bf16(self, hw):
+        """``corr_feat_pack`` pools in bf16: each mean rounds to bf16 on both
+        sides, bit for bit."""
+        x = np.random.default_rng(2).standard_normal((2,) + hw + (3,)).astype(np.float32)
+        xj = jnp.asarray(x, jnp.bfloat16)
+        xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(torch.bfloat16)
+        out = tcorr.avg_pool2_nhwc(xt)
+        assert out.dtype == torch.bfloat16
+        np.testing.assert_array_equal(out.float().numpy(),
+                                      np.asarray(jcorr.avg_pool2_nhwc(xj).astype(jnp.float32)))
+
     def test_quantize_volume(self, case):
         _, _, _, jpyr, tpyr = case
         qj, sj = jcorr.quantize_volume(jpyr[0])

@@ -6,14 +6,23 @@
   focal (a sum over every pixel of every edge) to 1e-3 px.
 * one ``FactorGraph.update`` round from the same buffer state with the same
   DroidNet weights in bf16: atol 2e-2, the bound that
-  ``tests/test_fused_update.py`` argues for one bf16 GRU+BA round.
+  ``tests/test_fused_update.py`` argues for one bf16 GRU+BA round; the same
+  in ``corr_mode=alt`` (packed features, K2) and ``corr_dtype=int8``
+  (quantised volumes with per-edge scales, K1), each against the JAX graph
+  in the same mode.
+* the graph's row machinery for packed and int8 rows: after removals the
+  stored rows equal a fresh build for the surviving edges (packed: exactly;
+  int8: within 1.5e-2 of the volume's magnitude, the JAX test's bound).
 * the slice as a whole: ``SLAMSystem.run`` of both packages on the
   geometric-oracle stream of ``tests/test_slam_system.py`` (JAX in its
   reference-exact ordering, ``keyframe_spec_depth=1, proximity_spec=False``):
   equal keyframe sets; trajectories and intrinsics within 1e-4 (f32 BA
-  rounding over ~300 Gauss-Newton iterations, measured ≤1e-6).
-* a random-weight DroidNet run of the port: finite outputs of the right
-  shape.  Random-weight trajectories diverge chaotically between frameworks
+  rounding over ~300 Gauss-Newton iterations, measured ≤1e-6); the same in
+  ``corr_mode=alt`` and ``corr_dtype=int8``, where the inner filler's graph
+  must hold packed features (alt) or bf16 volumes (int8), as the JAX
+  package's filler does.
+* random-weight DroidNet runs of the port (volume and alt): finite outputs
+  of the right shape.  Random-weight trajectories diverge chaotically between frameworks
   (``tests/test_frontend_deferred.py``), so none is bounded.
 """
 
@@ -133,7 +142,7 @@ def test_singular_system_gives_nan_not_raise(ba_state):
 # ----------------------------------------------------------- one GRU round
 
 
-def _jax_graph(seed=3, n=6):
+def _jax_graph(seed=3, n=6, corr_mode="volume", corr_dtype="bf16"):
     """JAX buffer + graph as in tests/test_fused_update.py, with seeded
     random features in the slots (the encoders are held in
     test_torch_droidnet.py)."""
@@ -156,12 +165,13 @@ def _jax_graph(seed=3, n=6):
                             intrinsics=np.asarray([W, W, W / 2, H / 2], np.float32))
         buf.poses = buf.poses.at[k, 0].set(0.1 * k + 0.01 * rng.normal())
         buf.disps = buf.disps.at[k].add(0.1 * jnp.asarray(rng.random((HT, WD)), jnp.float32))
-    g = FactorGraph(buf, uf, params, max_factors=16, incremental=True)
+    g = FactorGraph(buf, uf, params, max_factors=16, incremental=True,
+                    corr_mode=corr_mode, corr_dtype=corr_dtype)
     g.add_neighborhood_factors(0, n, r=1)
     return params, buf, g
 
 
-def _torch_graph_like(params, jbuf, n=6):
+def _torch_graph_like(params, jbuf, n=6, corr_mode="volume", corr_dtype="bf16"):
     """The port's buffer + graph holding the same state and weights."""
     import jax
 
@@ -186,20 +196,40 @@ def _torch_graph_like(params, jbuf, n=6):
     buf.intrinsics = f32(jbuf.intrinsics)
     for name in ("fmaps", "nets", "inps"):
         getattr(buf, name)[:n] = f32(getattr(jbuf, name)[:n]).to(torch.bfloat16)
-    g = FactorGraph(buf, uf, max_factors=16, incremental=True)
+    g = FactorGraph(buf, uf, max_factors=16, incremental=True,
+                    corr_mode=corr_mode, corr_dtype=corr_dtype)
     g.add_neighborhood_factors(0, n, r=1)
     return buf, g
 
 
-def test_factor_graph_update_round_matches_jax():
+def _check_corr_state(jg, tg):
+    """The same correlation state from the same features: volumes to one
+    bf16 ulp; packed features bit for bit; int8 rows, which can round the
+    other way where the bf16 volumes differ by an ulp, to one quantisation
+    step, and their scales to one bf16 ulp."""
+    n = jg.n_edges
+    assert len(tg.corr_pyr) == len(jg.corr_pyr)
+    for lvl, (j, t) in enumerate(zip(jg.corr_pyr, tg.corr_pyr)):
+        ref = np.asarray(j[:n].astype(jnp.float32))
+        assert t.dtype == (torch.int8 if tg.corr_q else torch.bfloat16)
+        assert str(j.dtype) == str(t.dtype).removeprefix("torch.")
+        if tg.corr_alt:
+            np.testing.assert_array_equal(t.float().numpy(), ref)
+        elif tg.corr_q:
+            assert np.abs(t.float().numpy() - ref).max() <= 1
+            np.testing.assert_allclose(tg.corr_scale[lvl].numpy(),
+                                       np.asarray(jg.corr_scale[lvl][:n]), rtol=2 ** -8)
+        else:
+            np.testing.assert_allclose(t.float().numpy(), ref, rtol=2 ** -8, atol=1e-6)
+
+
+def _check_update_round(corr_mode="volume", corr_dtype="bf16"):
     n = 6
-    params, jbuf, jg = _jax_graph(n=n)
-    tbuf, tg = _torch_graph_like(params, jbuf, n=n)
+    params, jbuf, jg = _jax_graph(n=n, corr_mode=corr_mode, corr_dtype=corr_dtype)
+    tbuf, tg = _torch_graph_like(params, jbuf, n=n, corr_mode=corr_mode, corr_dtype=corr_dtype)
     np.testing.assert_array_equal(tg.ii, jg.ii[: jg.n_edges])
     np.testing.assert_array_equal(tg.jj, jg.jj[: jg.n_edges])
-    for j, t in zip(jg.corr_pyr, tg.corr_pyr):  # same volumes from the same features
-        np.testing.assert_allclose(t.float().numpy(), np.asarray(j[: jg.n_edges], np.float32),
-                                   rtol=2 ** -8, atol=1e-6)
+    _check_corr_state(jg, tg)
 
     with torch.no_grad():
         tg.update(use_inactive=True)
@@ -217,6 +247,58 @@ def test_factor_graph_update_round_matches_jax():
     np.testing.assert_array_equal(tg.age, jg.age[: jg.n_edges])
     assert float(torch.abs(tbuf.poses[1:n, :3] - torch.from_numpy(
         np.array(jbuf.poses[1:n, :3]))).max()) < 2e-2
+
+
+def test_factor_graph_update_round_matches_jax():
+    _check_update_round()
+
+
+@pytest.mark.parametrize("corr_mode,corr_dtype", [("alt", "bf16"), ("volume", "int8")])
+def test_factor_graph_update_round_corr_options_match_jax(corr_mode, corr_dtype):
+    """Mirrors ``test_corr_mode_alt_one_round`` / ``test_corr_dtype_int8_one_round``
+    of ``tests/test_fused_update.py``, port against JAX in the same mode."""
+    _check_update_round(corr_mode, corr_dtype)
+
+
+@pytest.mark.parametrize("corr_mode,corr_dtype", [("alt", "bf16"), ("volume", "int8")])
+def test_corr_rows_follow_removals(corr_mode, corr_dtype):
+    """Mirrors ``test_corr_dtype_int8_row_machinery``: after evicting two
+    edges into the inactive store and removing a keyframe, the stored rows
+    equal a fresh build for the surviving edges."""
+    from vipe_tpu_torch.ops import corr as tcorr
+    from vipe_tpu_torch.slam.buffer import GraphBuffer
+    from vipe_tpu_torch.slam.factor_graph import FactorGraph
+
+    rng = np.random.default_rng(7)
+    buf = GraphBuffer(height=H, width=W, buffer_size=32)
+    for k in range(6):
+        feats = [torch.from_numpy(rng.standard_normal((HT, WD, 128)).astype(np.float32))
+                 .to(torch.bfloat16) for _ in range(3)]
+        buf.append_keyframe(k, torch.zeros((H, W, 3), dtype=torch.uint8), *feats,
+                            intrinsics=np.asarray([W, W, W / 2, H / 2], np.float32))
+    g = FactorGraph(buf, None, max_factors=16, incremental=True,
+                    corr_mode=corr_mode, corr_dtype=corr_dtype)
+    g.add_neighborhood_factors(0, 6, r=1)
+    mask = np.zeros(g.n_edges, bool)
+    mask[[1, 3]] = True
+    g.rm_factors(mask, store=True)
+    g.rm_keyframe(2)
+    n = g.n_edges
+    assert n > 0
+    f1 = buf.fmaps[torch.from_numpy(g.ii)].float()
+    f2 = buf.fmaps[torch.from_numpy(g.jj)].float()
+    if corr_mode == "alt":
+        fresh = tcorr.corr_feat_pack(f1, f2)
+        assert len(g.corr_pyr) == 5
+        for stored, ref in zip(g.corr_pyr, fresh):
+            torch.testing.assert_close(stored, ref, rtol=0, atol=0)
+    else:
+        fresh = tcorr.corr_pyramid(f1, f2)
+        for q, s, ref in zip(g.corr_pyr, g.corr_scale, fresh):
+            assert q.dtype == torch.int8 and tuple(s.shape) == (n,)
+            deq = q.float() * s[:, None, None, None, None]
+            ref = ref.float()
+            assert float((deq - ref).abs().max() / (ref.abs().max() + 1e-9)) < 1.5e-2
 
 
 # ------------------------------------------------------- the slice, oracle
@@ -258,9 +340,11 @@ def _run_with_spy(module, buffer_ref, run):
         module.GraphBuffer = orig
 
 
-@pytest.fixture(scope="module")
-def oracle_runs():
+def _oracle_runs(corr_cfg):
+    """Both systems on the oracle stream with the ``corr_cfg`` options; the
+    port's inner-filler graphs are kept for inspection."""
     import vipe_tpu.slam.system as jsystem
+    from vipe_tpu_torch.slam import inner_filler as tfiller
 
     rng = np.random.default_rng(3)
     poses_w2c, disps, intr_full = make_gt(rng)
@@ -277,7 +361,7 @@ def oracle_runs():
         return z, z
 
     out_j = _run_with_spy(jsystem, ref_j, lambda: jsystem.SLAMSystem(
-        config=dict(SYSTEM_CFG, keyframe_spec_depth=1, proximity_spec=False),
+        config=dict(SYSTEM_CFG, keyframe_spec_depth=1, proximity_spec=False, **corr_cfg),
         update_fn=oracle_j, params=None, encode_features=ef_j, encode_context=ec_j,
     ).run(stream))
 
@@ -287,11 +371,33 @@ def oracle_runs():
     def ef_t(images):
         return torch.zeros((images.shape[0], HT, WD, 128), dtype=torch.bfloat16)
 
-    out_t = _run_with_spy(tsystem, ref_t, lambda: tsystem.SLAMSystem(
-        config=SYSTEM_CFG, device="cpu", update_fn=oracle_t, encode_features=ef_t,
-        encode_context=lambda im: (ef_t(im), ef_t(im)),
-    ).run(stream))
-    return out_j, out_t, np.asarray(jlie.se3_inv(poses_w2c))
+    filler_graphs = []
+
+    class SpyGraph(tfiller.FactorGraph):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            filler_graphs.append(self)
+
+    orig_graph, tfiller.FactorGraph = tfiller.FactorGraph, SpyGraph
+    try:
+        out_t = _run_with_spy(tsystem, ref_t, lambda: tsystem.SLAMSystem(
+            config=dict(SYSTEM_CFG, **corr_cfg), device="cpu", update_fn=oracle_t,
+            encode_features=ef_t, encode_context=lambda im: (ef_t(im), ef_t(im)),
+        ).run(stream))
+    finally:
+        tfiller.FactorGraph = orig_graph
+    return out_j, out_t, np.asarray(jlie.se3_inv(poses_w2c)), filler_graphs
+
+
+@pytest.fixture(scope="module")
+def oracle_runs():
+    return _oracle_runs({})[:3]
+
+
+@pytest.fixture(scope="module", params=["alt", "int8"])
+def oracle_runs_corr(request):
+    cfg = {"alt": {"corr_mode": "alt"}, "int8": {"corr_dtype": "int8"}}[request.param]
+    return (request.param,) + _oracle_runs(cfg)
 
 
 class TestSystemOracleParity:
@@ -321,27 +427,72 @@ class TestSystemOracleParity:
         assert 0.0 <= out_t.ba_residual < 1e-6 and out_j.ba_residual < 1e-6
 
 
+class TestSystemOracleParityCorrOptions:
+    """``TestSystemOracleParity`` at its limits, with ``corr_mode=alt`` and
+    with ``corr_dtype=int8`` on both sides."""
+
+    def test_keyframes_equal(self, oracle_runs_corr):
+        _, out_j, out_t, _, _ = oracle_runs_corr
+        np.testing.assert_array_equal(out_t.keyframes, out_j.slam_map.frame_inds)
+
+    def test_trajectory_close(self, oracle_runs_corr):
+        _, out_j, out_t, gt, _ = oracle_runs_corr
+        assert out_t.trajectory.shape == (T, 7)
+        np.testing.assert_allclose(out_t.trajectory, out_j.trajectory, rtol=0, atol=1e-4)
+        assert np.abs(out_t.trajectory[:, :3] - gt[:, :3]).max() < 2e-2
+
+    def test_intrinsics_and_map_close(self, oracle_runs_corr):
+        _, out_j, out_t, _, _ = oracle_runs_corr
+        np.testing.assert_allclose(out_t.intrinsics, out_j.intrinsics, rtol=1e-5)
+        np.testing.assert_array_equal(out_t.slam_map.mask, out_j.slam_map.mask)
+        np.testing.assert_allclose(out_t.slam_map.xyz, out_j.slam_map.xyz, rtol=0, atol=1e-4)
+        assert 0.0 <= out_t.ba_residual < 1e-6 and out_j.ba_residual < 1e-6
+
+    def test_filler_graph_corr_state(self, oracle_runs_corr):
+        """The JAX filler with a real update network (``_compute_fused``)
+        builds packed features in alt mode and bf16 volumes whatever
+        ``corr_dtype`` says; the port's filler does the same."""
+        mode, _, _, _, graphs = oracle_runs_corr
+        assert graphs
+        for g in graphs:
+            if mode == "alt":
+                assert len(g.corr_pyr) == 5 and all(p.dim() == 4 for p in g.corr_pyr)
+            else:
+                assert g.corr_scale is None and len(g.corr_pyr) == 4
+                assert all(p.dim() == 5 and p.dtype == torch.bfloat16 for p in g.corr_pyr)
+
+
 # ------------------------------------------------- random-weight DroidNet
 
 
-def test_random_weight_droidnet_run_is_finite():
+def _random_weight_run(**corr_cfg):
     rng = np.random.default_rng(7)
     _, disps, intr_full = make_gt(rng)
     stream = SyntheticStream(rng, disps, intr_full, with_depth=False)
-    out = tsystem.SLAMSystem(
+    return tsystem.SLAMSystem(
         config=dict(resize_area=H * W, filter_thresh=0.0, warmup=4, buffer=32,
-                    infill_chunk_size=6, backend_iters=1),
+                    infill_chunk_size=6, backend_iters=1, **corr_cfg),
         device="cpu",
     ).run(stream)
+
+
+def _check_finite_run(out):
     assert out.trajectory.shape == (T, 7) and np.isfinite(out.trajectory).all()
     assert out.intrinsics.shape == (4,) and np.isfinite(out.intrinsics).all()
     assert out.keyframes[0] == 0 and out.keyframes[-1] == T - 1
     assert np.isfinite(out.slam_map.xyz).all()
 
 
+def test_random_weight_droidnet_run_is_finite():
+    _check_finite_run(_random_weight_run())
+
+
+def test_random_weight_droidnet_alt_run_is_finite():
+    _check_finite_run(_random_weight_run(corr_mode="alt"))
+
+
 @pytest.mark.parametrize("key,value", [
-    ("keyframe_spec_depth", 2), ("proximity_spec", True), ("corr_mode", "alt"),
-    ("corr_dtype", "int8"), ("keyframe_depth", "constant-2.0"),
+    ("keyframe_spec_depth", 2), ("proximity_spec", True), ("keyframe_depth", "constant-2.0"),
 ])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError):

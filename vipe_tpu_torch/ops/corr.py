@@ -1,30 +1,37 @@
-"""Correlation pyramid and windowed lookup (port of ``vipe_tpu/ops/corr.py``,
-volume mode).
+"""Correlation pyramid and windowed lookup (port of ``vipe_tpu/ops/corr.py``).
 
 Feature maps are NHWC ``(E, H, W, C)``; volumes ``(E, h1, w1, h2, w2)``;
 coords ``(u, v)`` at level-0 scale (divided by 2^l per level).  Both fmaps
 are scaled by 1/4 before the product, so correlations carry the reference's
-1/16 normalisation.  The lookup itself is ``ops.corr_kernels.corr_lookup``:
-the CUDA kernel on CUDA tensors, its plain version on CPU tensors.
+1/16 normalisation.  Two formulations, as in the JAX package:
+
+* volume mode: ``corr_pyramid`` stores the volumes, looked up by K1
+  (``ops.corr_kernels.corr_lookup``);
+* alt mode: ``corr_feat_pack`` stores per-edge features, and K2
+  (``ops.corr_kernels.corr_fused``) recomputes the windowed dots at every
+  lookup.
+
+Each kernel runs on CUDA tensors and its plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .corr_kernels import corr_lookup
+from .corr_kernels import corr_fused, corr_lookup
 
 
 def quantize_volume(vol):
     """Symmetric per-edge int8 quantisation: ``vol ≈ q · s[:, None, ...]``.
-    Returns ``(q int8, s f32 (E,))``."""
-    v = vol.float()
-    absmax = v.abs().amax(dim=tuple(range(1, v.dim())))
+    Returns ``(q int8, s f32 (E,))``.  Works in place on one f32 copy of
+    the volume: the frontend quantises 16 level-0 volumes at a time, and
+    each f32 temporary of that chunk is ~0.6 GB at 720p."""
+    v = vol.to(torch.float32, copy=True)
+    dims = tuple(range(1, v.dim()))
+    absmax = torch.maximum(v.amax(dim=dims), -v.amin(dim=dims))
     s = torch.clamp(absmax, min=1e-12) / 127.0
-    q = torch.clamp(
-        torch.round(v / s.reshape((-1,) + (1,) * (v.dim() - 1))), -127, 127
-    ).to(torch.int8)
-    return q, s
+    v.div_(s.reshape((-1,) + (1,) * (v.dim() - 1))).round_().clamp_(-127, 127)
+    return v.to(torch.int8), s
 
 
 def level_dims(ht: int, wd: int, level: int):
@@ -69,9 +76,29 @@ def corr_pyramid(fmap1, fmap2, num_levels: int = 4):
     return pyramid
 
 
+def corr_feat_pack(fmap1, fmap2, num_levels: int = 4):
+    """Packed per-edge correlation features for alt mode: ``[f1, pool⁰(f2),
+    …, pool^{L-1}(f2)]``, each /4-scaled and bf16, pooled in bf16.  Every
+    entry is a per-edge row, so the graph's row machinery applies as for
+    volumes, at ~1/13 of their memory."""
+    f1 = (fmap1.float() / 4.0).to(torch.bfloat16)
+    f2 = (fmap2.float() / 4.0).to(torch.bfloat16)
+    packed = [f1]
+    for _ in range(num_levels):
+        packed.append(f2)
+        f2 = avg_pool2_nhwc(f2).contiguous()
+    return packed
+
+
 def corr_lookup_pyramid(pyramid, coords, radius: int = 3, scales=None):
     """Bilinear (2r+1)² window of every level at ``coords / 2^l``, channels
     level-major and ``dy·(2r+1) + dx`` within a level → (E, h1, w1, L·49)
-    f32.  ``scales``: per-level (E,) dequantisation factors for int8
-    volumes."""
-    return corr_lookup(list(pyramid), coords, scales=scales, radius=radius)
+    f32.  Dispatches on the entry rank: packed features from
+    ``corr_feat_pack`` (rank 4) go to K2, volumes (rank 5) to K1.
+    ``scales``: per-level (E,) dequantisation factors for int8 volumes."""
+    pyramid = list(pyramid)
+    if pyramid[0].dim() == 4:
+        if scales is not None:
+            raise ValueError("packed features take no dequantisation scales")
+        return corr_fused(pyramid[0], pyramid[1:], coords, radius=radius, prescaled=True)
+    return corr_lookup(pyramid, coords, scales=scales, radius=radius)

@@ -20,6 +20,8 @@ class SLAMBackend:
         c = self.config
         buf = self.buffer
         t = buf.n_frames
+        # alt: each chunk packs features instead of building its volumes;
+        # the graph stores no corr state, so corr_dtype does not apply
         graph = FactorGraph(
             buf, self.update_fn, max_factors=16 * t, incremental=False,
             corr_mode=c.get("corr_mode", "volume"),

@@ -2,11 +2,21 @@
 sequential path of ``vipe_tpu/slam/factor_graph.py``).
 
 Per-edge device state (targets, weights, hidden states, correlation
-pyramids) holds exactly the active edges, in the JAX package's row order:
-new edges append, removals compact the kept rows in order.  The learned
-update operator is injected as ``update_fn(net, inp, corr, motn, ii, jj,
-num_frames) -> (net, delta, weight, eta)``, so tests can swap DroidNet for
-a geometric oracle.
+state) holds exactly the active edges, in the JAX package's row order:
+new edges append, removals compact the kept rows in order.  The
+correlation state of an incremental graph is, per ``corr_mode`` and
+``corr_dtype``:
+
+* ``volume``/``bf16``: the 4-level bf16 volume pyramid (K1 lookups);
+* ``volume``/``int8``: the same volumes quantised per edge and level, with
+  their (E,) f32 scales in ``corr_scale`` (K1 lookups with scales);
+* ``alt``: 5 packed bf16 feature rows, f1 and the pooled f2 per level
+  (``corr_feat_pack``), whose dots K2 recomputes at every lookup;
+  ``corr_dtype`` does not apply.
+
+The learned update operator is injected as ``update_fn(net, inp, corr,
+motn, ii, jj, num_frames) -> (net, delta, weight, eta)``, so tests can swap
+DroidNet for a geometric oracle.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from . import ba
 CORR_LEVELS = 4
 CORR_RADIUS = 3
 BACKEND_CHUNK = 32  # edges per backend corr chunk (soft cap, frame-aligned)
-ADD_CHUNK = 16      # edges per corr-volume build (bounds transient memory)
+ADD_CHUNK = 16      # edges per corr-state build (bounds transient memory)
 WEIGHT_DENSE_DISP = 0.001  # flow-term weight of the BA (reference buffer.py:396)
 
 
@@ -31,10 +41,10 @@ class FactorGraph:
     def __init__(self, buffer, update_fn: Callable, max_factors: int,
                  incremental: bool, optimize_intrinsics: bool = False,
                  corr_mode: str = "volume", corr_dtype: str = "bf16"):
-        if corr_mode != "volume":
-            raise NotImplementedError(f"corr_mode={corr_mode!r} is not ported yet (volume only)")
-        if corr_dtype != "bf16":
-            raise NotImplementedError(f"corr_dtype={corr_dtype!r} is not ported yet (bf16 only)")
+        if corr_mode not in ("volume", "alt"):
+            raise ValueError(f"corr_mode must be 'volume' or 'alt', got {corr_mode!r}")
+        if corr_dtype not in ("bf16", "int8"):
+            raise ValueError(f"corr_dtype must be 'bf16' or 'int8', got {corr_dtype!r}")
         self.buffer = buffer
         self.update_fn = update_fn
         self.max_factors = max_factors
@@ -50,13 +60,24 @@ class FactorGraph:
         self.target = torch.zeros((0, ht, wd, 2), device=dev)
         self.weight = torch.zeros((0, ht, wd, 2), device=dev)
         self.f_net = torch.zeros((0, ht, wd, 128), device=dev)
-        self.corr_pyr = None
-        if incremental:
+        self.corr_alt = corr_mode == "alt"
+        # int8 volumes only where volumes are stored (JAX: volume mode only;
+        # the backend's per-chunk volumes stay bf16)
+        self.corr_q = corr_dtype == "int8" and not self.corr_alt and incremental
+        self.corr_pyr = self.corr_scale = None
+        if incremental and self.corr_alt:
+            C = buffer.fmaps.shape[-1]
+            dims = [(ht, wd)] + [corr_ops.level_dims(ht, wd, lvl) for lvl in range(CORR_LEVELS)]
+            self.corr_pyr = [torch.zeros((0,) + d + (C,), dtype=torch.bfloat16, device=dev)
+                             for d in dims]
+        elif incremental:
             self.corr_pyr = [
                 torch.zeros((0, ht, wd) + corr_ops.level_dims(ht, wd, lvl),
-                            dtype=torch.bfloat16, device=dev)
+                            dtype=torch.int8 if self.corr_q else torch.bfloat16, device=dev)
                 for lvl in range(CORR_LEVELS)
             ]
+            if self.corr_q:
+                self.corr_scale = [torch.zeros(0, device=dev) for _ in range(CORR_LEVELS)]
         # per-frame GRU-predicted BA damping (not shifted on keyframe removal)
         self.damping = torch.full((buffer.buffer_size, ht, wd), 1e-6, device=dev)
         # inactive (stored) factors
@@ -72,12 +93,26 @@ class FactorGraph:
     def _t(self, a):
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=self.device)
 
+    def _corr_state(self, ii_t, jj_t):
+        """Correlation state of the edges ``ii_t → jj_t``: packed features
+        in alt mode, else the volume pyramid (and, for int8, the quantised
+        levels with their per-edge scales)."""
+        f1 = self.buffer.fmaps[ii_t].float()
+        f2 = self.buffer.fmaps[jj_t].float()
+        if self.corr_alt:
+            return corr_ops.corr_feat_pack(f1, f2, CORR_LEVELS), None
+        pyr = corr_ops.corr_pyramid(f1, f2, CORR_LEVELS)
+        if not self.corr_q:
+            return pyr, None
+        q, s = zip(*(corr_ops.quantize_volume(p) for p in pyr))
+        return list(q), list(s)
+
     # ------------------------------------------------------------ edge admin
 
     def add_factors(self, ii, jj, remove: bool = False):
         """Add edges: dedup against active + inactive edges and earlier
         entries, optionally evict the oldest to respect ``max_factors``,
-        build per-edge corr pyramids, init target from the current
+        build per-edge corr state, init target from the current
         reprojection, weight 0, hidden state from the source frame."""
         ii = np.asarray(ii, np.int64).reshape(-1)
         jj = np.asarray(jj, np.int64).reshape(-1)
@@ -113,15 +148,18 @@ class FactorGraph:
         self.weight = torch.cat([self.weight, torch.zeros_like(coords)])
         self.f_net = torch.cat([self.f_net, buf.nets[ii_t].float()])
         if self.incremental:
-            parts = [[] for _ in range(CORR_LEVELS)]
+            parts = [[p] for p in self.corr_pyr]
+            sparts = [[s] for s in self.corr_scale or []]
             for c0 in range(0, len(ii), ADD_CHUNK):
                 sl = slice(c0, c0 + ADD_CHUNK)
-                pyr = corr_ops.corr_pyramid(
-                    buf.fmaps[ii_t[sl]].float(), buf.fmaps[jj_t[sl]].float(), CORR_LEVELS
-                )
-                for lvl in range(CORR_LEVELS):
-                    parts[lvl].append(pyr[lvl])
-            self.corr_pyr = [torch.cat([p] + q) for p, q in zip(self.corr_pyr, parts)]
+                pyr, scales = self._corr_state(ii_t[sl], jj_t[sl])
+                for part, p in zip(parts, pyr):
+                    part.append(p)
+                for part, s in zip(sparts, scales or []):
+                    part.append(s)
+            self.corr_pyr = [torch.cat(p) for p in parts]
+            if self.corr_q:
+                self.corr_scale = [torch.cat(s) for s in sparts]
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
         self.age = np.concatenate([self.age, np.zeros(len(ii), np.int64)])
@@ -146,6 +184,8 @@ class FactorGraph:
         self.f_net = self.f_net[keep_t]
         if self.incremental:
             self.corr_pyr = [p[keep_t] for p in self.corr_pyr]
+            if self.corr_q:
+                self.corr_scale = [s[keep_t] for s in self.corr_scale]
 
     def rm_keyframe(self, ix: int):
         """Remove keyframe ``ix`` from buffer and graph, shifting indices."""
@@ -267,7 +307,8 @@ class FactorGraph:
         if t1 is None:
             t1 = int(max(self.ii.max(), self.jj.max()) + 1)
         coords1, _ = self.buffer.reproject(self.ii, self.jj)
-        corr_feat = corr_ops.corr_lookup_pyramid(self.corr_pyr, coords1, CORR_RADIUS)
+        corr_feat = corr_ops.corr_lookup_pyramid(self.corr_pyr, coords1, CORR_RADIUS,
+                                                 scales=self.corr_scale)
         self.f_net, self.target, self.weight, eta = self._run_update_fn(
             self.f_net, coords1, self.target, self.ii, self.jj, corr_feat
         )
@@ -292,8 +333,10 @@ class FactorGraph:
 
     def update_batch(self, itrs: int, steps: int, optimize_intrinsics: bool = False):
         """Backend-style batched update: per step, refresh every edge's
-        target/weight chunk by chunk (corr pyramid built per chunk and
-        dropped after its lookup), then one global BA."""
+        target/weight chunk by chunk (corr pyramid, or packed features in
+        alt mode, built per chunk and dropped after its lookup), then one
+        global BA.  The backend graph stores no corr state, so
+        ``corr_dtype`` does not apply, as in the JAX package."""
         if self.n_edges == 0:
             return
         t = self.buffer.n_frames
@@ -320,10 +363,7 @@ class FactorGraph:
             for sel in frame_chunks:
                 sel_t = self._t(sel)
                 ii, jj = self.ii[sel], self.jj[sel]
-                pyr = corr_ops.corr_pyramid(
-                    buf.fmaps[self._t(ii)].float(), buf.fmaps[self._t(jj)].float(),
-                    CORR_LEVELS,
-                )
+                pyr, _ = self._corr_state(self._t(ii), self._t(jj))
                 c1 = coords1[sel_t]
                 corr_feat = corr_ops.corr_lookup_pyramid(pyr, c1, CORR_RADIUS)
                 del pyr

@@ -1,9 +1,13 @@
 """Pass-2 interpolation of non-keyframe poses (port of
-``vipe_tpu/slam/inner_filler.py::_compute_loop``).
+``vipe_tpu/slam/inner_filler.py``, single view).
 
 Non-keyframes are appended after ``start_idx``; each chunk gets a
 constant-velocity SE3 initialisation between its bracketing keyframes,
-then 10 motion-only GRU/BA rounds against those two keyframes.
+then 10 motion-only GRU/BA rounds against those two keyframes.  The rounds
+run as the JAX package's ``_compute_loop`` does them; the correlation
+state follows its ``_compute_fused``, the path the JAX package takes with
+a real update network: ``corr_mode`` from the config (packed features in
+alt mode), bf16 volumes whatever ``corr_dtype`` says.
 """
 
 from __future__ import annotations
@@ -62,7 +66,7 @@ class InnerFiller:
 
         graph = FactorGraph(
             buf, self.update_fn, max_factors=4 * (total - s), incremental=True,
-            corr_dtype=self.config.get("corr_dtype", "bf16"),
+            corr_mode=self.config.get("corr_mode", "volume"),
         )
         infill = np.arange(s, total)
         graph.add_factors(t0, infill)

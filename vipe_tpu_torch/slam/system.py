@@ -36,8 +36,6 @@ _UNSUPPORTED = {
     "visualize": False,
     "sparse_tracks": None,
     "keyframe_stride": None,
-    "corr_mode": "volume",
-    "corr_dtype": "bf16",
     "keyframe_spec_depth": 1,
     "proximity_spec": False,
     "infill_dense_disp": False,
