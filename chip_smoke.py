@@ -16,19 +16,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    levels and out-of-bounds coords; times the kernel, the plain version and
    ``grid_sample`` (the yardstick, never used by the port);
 4. holds K2 (``corr_fused``) against its plain version at the same frontend
-   shape (packed features, C = 128) and on the odd grid; times the kernel,
+   shape (packed features, C = 128) and on the odd grid; times the kernel
+   (also on coords of a pure shift and on coords uniform over the plane),
    the plain version and the route it replaces (``corr_pyramid`` + K1);
 5. checks the SLAM machinery on the card against ground truth: a tiny
    synthetic scene whose update operator is a geometric oracle (GT flow,
    unit weights) must give back the GT trajectory;
-6. drives three main paths, each a seeded synthetic 720p stream through
+6. drives four main paths, each a seeded synthetic 720p stream through
    ``DefaultAnnotationPipeline`` on ``cuda`` (random DroidNet weights from a
    seed), with the kernels' launch counts set to 0 just before and read
    just after: the default (volume, bf16), ``slam.corr_mode: alt``,
    ``slam.corr_dtype: int8`` and the default again; prints frames,
    keyframes, wall seconds, fps, peak memory (overall and per stage), stage
-   host seconds and launches of each;
-7. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
+   host seconds and launches of each.  A spy copies to host memory the
+   coords of the first frontend call (at the largest edge count) and of the
+   first backend call that reach each kernel;
+7. times K1 (volume run) and K2 (alt run) on those captured coords, with
+   seeded features of the same shapes, warm and with a cold L2 cache;
+8. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
+
+Kernel times come from CUDA events: the mean of back-to-back launches
+(warm L2) as ``ms``, and the median of launches each preceded by a 128 MB
+write (cold L2, as the main path calls them) as ``cold_ms``;
+``bound_share`` is ``bound_ms / ms``.
 
 It exits non-zero without a result when no CUDA card is present, and in a
 directory that does not hold the ``vipe_tpu_torch`` package.
@@ -76,8 +86,14 @@ def _card_line() -> str:
     return out[0]
 
 
+SLEEP_CYCLES_PER_LAUNCH = 200_000  # ~0.1 ms of card time per queued launch
+
+
 def _cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back launches, by
+    CUDA events.  The card first sleeps while the host queues every launch,
+    so a kernel shorter than its wrapper's host time is still timed
+    back to back (the L2 cache stays warm between launches)."""
     import torch
 
     fn()
@@ -85,12 +101,42 @@ def _cuda_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_LAUNCH * iters)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+FLUSH_BYTES = 128 << 20  # written between cold launches: 2.5x the H100's 50 MB L2
+
+
+def _cuda_ms_cold(fn, iters: int) -> float:
+    """Median device time of ``fn`` with a cold L2 cache, as the main path
+    meets it: before each launch the card writes ``FLUSH_BYTES``, then
+    sleeps while the host queues the launch; each launch is bracketed by
+    its own CUDA events.  The median, because a launch that the host
+    queues after the sleep has ended times the host's delay too."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.fill_(1.0)
+        torch.cuda._sleep(SLEEP_CYCLES_PER_LAUNCH)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del flush
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
 # ------------------------------------------------------------------- kernels
@@ -211,6 +257,7 @@ def kernel_phase():
 
     iters = 20
     ms = _cuda_ms(lambda: ck.corr_lookup(pyr, coords), iters)
+    cold_ms = _cuda_ms_cold(lambda: ck.corr_lookup(pyr, coords), iters)
     plain_ms = _cuda_ms(lambda: ck.corr_lookup_plain(pyr, coords), 5)
     gs_run, gs_result = _grid_sample_lookup(pyr, coords)
     library_ms = _cuda_ms(gs_run, iters)
@@ -225,9 +272,10 @@ def kernel_phase():
         "launches": None,
         "max_abs_err": err,
         "ms": ms,
-        "kernel_ms": ms,
+        "cold_ms": cold_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_s * 1e3,
+        "bound_share": bound_s * 1e3 / ms,
         "bound_us": bound_s * 1e6,
         "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_FLOPS_PER_S else "operations",
         "library_ms": library_ms,
@@ -326,6 +374,14 @@ def fused_kernel_phase():
         raise AssertionError("K2: fully out-of-plane windows are not exactly 0")
 
     ms = _cuda_ms(lambda: ck.corr_fused(packed[0], packed[1:], coords), 20)
+    cold_ms = _cuda_ms_cold(lambda: ck.corr_fused(packed[0], packed[1:], coords), 20)
+    # K2's time follows the coords: how coherent each tile's neighbourhoods are
+    sweep = {}
+    for name, co in (("shift", grid.expand(E, ht, wd, 2) + 0.5),
+                     ("uniform", torch.rand((E, ht, wd, 2), generator=g, device=dev)
+                      * torch.tensor([wd, ht], device=dev, dtype=torch.float32))):
+        co = co.contiguous()
+        sweep[name] = _cuda_ms(lambda: ck.corr_fused(packed[0], packed[1:], co), 20)  # noqa: B023
     plain_ms = _cuda_ms(lambda: ck.corr_fused_plain(packed[0], packed[1:], coords), 3)
     volume_route_ms = _cuda_ms(
         lambda: ck.corr_lookup(corr_ops.corr_pyramid(f1, f2), coords), 10)
@@ -339,12 +395,15 @@ def fused_kernel_phase():
         "launches": None,
         "max_abs_err": err,
         "ms": ms,
+        "cold_ms": cold_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_share": max(bytes_s, ops_s) * 1e3 / ms,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "library_ms": None,
         "library": "none: no single PyTorch call forms the windowed dots without the "
                    "volume",
+        "coords_sweep_ms": {"grid_plus_2N(0,1)": ms, **sweep},
         "replaced_route_ms": volume_route_ms,
         "replaced_route": "corr_pyramid (cuBLAS bmm, bf16 volumes) + K1, same features",
         "cuda_core_bound_ms": ops / F32_FLOPS_PER_S * 1e3,
@@ -552,6 +611,101 @@ def stage_peaks():
         profiling.stage = orig
 
 
+@contextlib.contextmanager
+def coords_spy():
+    """While active, copies to host memory the coords that the main path
+    hands to the correlation lookup: per kernel (K1 on volumes, K2 on packed
+    features), the first frontend call at the largest edge count seen in
+    ``slam_pass1`` and the first call in ``slam_backend``; yields the dict
+    {(kernel, role): {"coords": cpu tensor, ...}} and counts every call.
+    Only host copies are made, so device peaks do not change."""
+    from vipe_tpu_torch.ops import corr as corr_ops
+    from vipe_tpu_torch.utils import profiling
+
+    orig_stage, orig_lookup = profiling.stage, corr_ops.corr_lookup_pyramid
+    names: list = []
+    seen: dict = {}
+
+    @contextlib.contextmanager
+    def stage(name):
+        names.append(name)
+        try:
+            with orig_stage(name):
+                yield
+        finally:
+            names.pop()
+
+    def lookup(pyramid, coords, *args, **kwargs):
+        pyramid = list(pyramid)
+        kernel = "K2" if pyramid[0].dim() == 4 else "K1"
+        role = {"slam_pass1": "frontend", "slam_backend": "backend"}.get(names[-1] if names else "")
+        if role is not None:
+            rec = seen.setdefault((kernel, role), {"calls": 0, "edges": set()})
+            E = int(coords.shape[0])
+            rec["calls"] += 1
+            rec["edges"].add(E)
+            if "coords" not in rec or (role == "frontend" and E > rec["coords"].shape[0]):
+                rec["coords"] = coords.detach().to("cpu", copy=True)
+        return orig_lookup(pyramid, coords, *args, **kwargs)
+
+    profiling.stage, corr_ops.corr_lookup_pyramid = stage, lookup
+    try:
+        yield seen
+    finally:
+        profiling.stage, corr_ops.corr_lookup_pyramid = orig_stage, orig_lookup
+
+
+def mainpath_coords_phase(kernels):
+    """Times K1 and K2 on the coords the main path gave them, with seeded
+    features of the same shapes: a kernel's time depends on the coords, not
+    on the values.  ``kernels`` maps "K1"/"K2" to (record, what
+    ``coords_spy`` captured in the run that launches it); adds
+    ``mainpath_coords`` to each record."""
+    import torch
+
+    from vipe_tpu_torch.ops import corr as corr_ops
+    from vipe_tpu_torch.ops import corr_kernels as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    for kernel, (rec, captured) in kernels.items():
+        rec["mainpath_coords"] = {}
+        for role in ("frontend", "backend"):
+            cap = captured.get((kernel, role))
+            if cap is None:
+                raise AssertionError(f"the main path made no {kernel} call in its {role}")
+            coords = cap["coords"].to(dev).contiguous()
+            E, ht, wd = coords.shape[:3]
+            f1 = torch.randn((E, ht, wd, 128), generator=g, device=dev).to(torch.bfloat16)
+            f2 = torch.randn((E, ht, wd, 128), generator=g, device=dev).to(torch.bfloat16)
+            if kernel == "K1":
+                ops = corr_ops.corr_pyramid(f1, f2)
+                run = lambda: ck.corr_lookup(ops, coords)  # noqa: E731
+                plain = lambda: ck.corr_lookup_plain(ops, coords)  # noqa: E731
+                moved, n_ops = _lookup_bound(ops, coords)
+                bound_s = max(moved / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S)
+            else:
+                ops = corr_ops.corr_feat_pack(f1, f2)
+                run = lambda: ck.corr_fused(ops[0], ops[1:], coords)  # noqa: E731
+                plain = lambda: ck.corr_fused_plain(ops[0], ops[1:], coords)  # noqa: E731
+                moved, n_ops = _fused_bound(ops, coords)
+                bound_s = max(moved / HBM_BYTES_PER_S, n_ops / BF16_TENSOR_FLOPS_PER_S)
+            err = float((run() - plain()).abs().max())
+            if not err <= 1e-4:
+                raise AssertionError(f"{kernel} on the main path's {role} coords: "
+                                     f"max abs err {err} > 1e-4")
+            ms = _cuda_ms(run, 20)
+            rec["mainpath_coords"][role] = {
+                "E": E, "grid": [ht, wd], "calls": cap["calls"], "edges_seen": sorted(cap["edges"]),
+                "max_abs_err": err, "tol": 1e-4,
+                "ms": ms, "cold_ms": _cuda_ms_cold(run, 20),
+                "bound_ms": bound_s * 1e3, "bound_share": bound_s * 1e3 / ms,
+                "bound_bytes": moved,
+            }
+            del ops, f1, f2, coords
+            torch.cuda.empty_cache()
+
+
 def main_path_phase(label, slam_cfg, n_frames, thresh, required):
     """One run of the main path with ``slam_cfg`` over ``n_frames`` of the
     seeded stream.  ``required`` names the launch counts that must be > 0."""
@@ -576,7 +730,7 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required):
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ck.corr_lookup.launches = ck.corr_lookup.int8_launches = ck.corr_fused.launches = 0
-    with stage_peaks() as (peaks, top):
+    with stage_peaks() as (peaks, top), coords_spy() as captured:
         t0 = time.perf_counter()
         out = pipe.run(stream)
         torch.cuda.synchronize()
@@ -610,7 +764,7 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required):
         "stages_host_s": stages,
         "intrinsics": [float(x) for x in out.intrinsics],
         "ba_residual": float(out.ba_residual),
-    }
+    }, captured
 
 
 def main():
@@ -645,13 +799,15 @@ def main():
         # the first run again: how far host-bound times drift within one call
         ("volume_again", {}, MAIN_FRAMES, ["corr_lookup"]),
     ]
-    main_paths = {}
+    main_paths, captured = {}, {}
     for label, cfg, n_frames, required in runs:
-        main_paths[label] = main_path_phase(label, cfg, n_frames, thresh, required)
+        main_paths[label], captured[label] = main_path_phase(label, cfg, n_frames, thresh,
+                                                             required)
         print(json.dumps({"main_path": main_paths[label]}), flush=True)
 
     k1["launches"] = main_paths["volume"]["launches"]["corr_lookup"]
     k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
+    mainpath_coords_phase({"K1": (k1, captured["volume"]), "K2": (k2, captured["alt"])})
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -38,23 +38,29 @@ def _inputs(seed, E=3, H=7, W=9, C=32, spread=6.0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
-def test_corr_lookup_matches_plain(cuda_device, dtype):
+def test_corr_lookup_matches_plain(cuda_device, dtype, levels):
+    """1-3 levels leave a warp's lanes of the missing levels idle; the odd
+    7×9 grid clamps levels 2-3 to 1-px planes and holds far-out, integer
+    and fully out-of-plane pixels."""
     f1, f2, coords = _inputs(6)
     pyr = tcorr.corr_pyramid(torch.from_numpy(f1).to(cuda_device),
-                             torch.from_numpy(f2).to(cuda_device))
+                             torch.from_numpy(f2).to(cuda_device))[:levels]
     scales = None
     if dtype == torch.int8:
         pyr, scales = map(list, zip(*(tcorr.quantize_volume(p) for p in pyr)))
     else:
         pyr = [p.to(dtype) for p in pyr]
-    c = torch.from_numpy(coords).to(cuda_device)
+    c = _far_coords(coords).to(cuda_device)
     before = ck.corr_lookup.launches
     out = ck.corr_lookup(pyr, c, scales=scales)
     assert ck.corr_lookup.launches == before + 1
     ref = ck.corr_lookup_plain(pyr, c, scales=scales)
     torch.cuda.synchronize()
+    assert out.shape == (3, 7, 9, 49 * levels)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert bool((out[2, 3] == 0).all()) and bool((out[0, 0, :2] == 0).all())
 
 
 @pytest.mark.cuda
@@ -78,10 +84,13 @@ def _far_coords(coords):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 128), (torch.float32, 128),
-                                     (torch.bfloat16, 96), (torch.bfloat16, 32)])
+                                     (torch.bfloat16, 96), (torch.bfloat16, 32),
+                                     (torch.bfloat16, 36), (torch.bfloat16, 2),
+                                     (torch.bfloat16, 256)])
 def test_corr_fused_matches_plain(cuda_device, dtype, C):
     """bf16 packed features (``corr_feat_pack``) and f32 features taken as
-    prescaled; C = 96 and 32 leave lanes without channels."""
+    prescaled; C = 96, 36 and 2 are padded to the mma depth of 16, and rows
+    of C = 36 and 2 are not 16-byte multiples (4-byte copies)."""
     f1, f2, coords = _inputs(8, C=C)
     packed = tcorr.corr_feat_pack(torch.from_numpy(f1).to(cuda_device),
                                   torch.from_numpy(f2).to(cuda_device))
@@ -119,3 +128,114 @@ def test_corr_fused_rejects_mixed_devices(cuda_device):
                                   torch.from_numpy(f2).to(cuda_device))
     with pytest.raises(ValueError):
         ck.corr_fused(packed[0], packed[1:], torch.from_numpy(coords))
+
+
+def _grid_coords(E, H, W):
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    return np.broadcast_to(np.stack([u, v], -1), (E, H, W, 2)).copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_corr_lookup_ragged_grid(cuda_device, dtype):
+    """The frontend's 41×73 grid (levels 41×73 … 5×9) with smooth coords."""
+    rng = np.random.default_rng(12)
+    E, H, W = 2, 41, 73
+    f1, f2 = (rng.standard_normal((E, H, W, 32)).astype(np.float32) for _ in range(2))
+    coords = _grid_coords(E, H, W) + rng.normal(0, 2.0, (E, H, W, 2)).astype(np.float32)
+    pyr = tcorr.corr_pyramid(torch.from_numpy(f1).to(cuda_device),
+                             torch.from_numpy(f2).to(cuda_device))
+    scales = None
+    if dtype == torch.int8:
+        pyr, scales = map(list, zip(*(tcorr.quantize_volume(p) for p in pyr)))
+    c = torch.from_numpy(coords).to(cuda_device)
+    out = ck.corr_lookup(pyr, c, scales=scales)
+    ref = ck.corr_lookup_plain(pyr, c, scales=scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+def _fused_coords(kind, E, H, W, rng):
+    if kind == "smooth":   # grid + constant shift + small noise: compact boxes
+        return (_grid_coords(E, H, W) + np.float32([2.5, -1.25])
+                + rng.normal(0, 0.3, (E, H, W, 2)).astype(np.float32))
+    if kind == "uniform":  # boxes cover the whole plane, several chunks each
+        u = rng.uniform(-2.0, W + 2.0, (E, H, W))
+        v = rng.uniform(-2.0, H + 2.0, (E, H, W))
+        return np.stack([u, v], -1).astype(np.float32)
+    # one 8×8 tile mixing far-out, integer and in-plane pixels
+    c = _grid_coords(E, H, W) + rng.normal(0, 1.0, (E, H, W, 2)).astype(np.float32)
+    c[0, 0, 0:3] = [-1.0e6, 2.0]
+    c[0, 1, 0:3] = [5.0, 1.0e6]
+    c[0, 2, 1] = [1.0e6, -1.0e6]
+    c[0, 3, 2:6] = np.round(c[0, 3, 2:6])
+    c[1, 4, 4] = [3.0, 4.0]
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(7, 9), (41, 73)])
+@pytest.mark.parametrize("kind", ["smooth", "uniform", "mixed"])
+def test_corr_fused_coords(cuda_device, kind, grid):
+    """Tiles whose boxes are compact (smooth flow), cover the whole plane in
+    several chunks (uniform coords), or mix far-out, integer and in-plane
+    pixels; ragged 41×73 tiles and the odd 7×9 grid with 1-px levels."""
+    rng = np.random.default_rng(13)
+    H, W = grid
+    E, C = 2, 128
+    f1, f2 = (rng.standard_normal((E, H, W, C)).astype(np.float32) for _ in range(2))
+    packed = tcorr.corr_feat_pack(torch.from_numpy(f1).to(cuda_device),
+                                  torch.from_numpy(f2).to(cuda_device))
+    c = torch.from_numpy(_fused_coords(kind, E, H, W, rng)).to(cuda_device)
+    out = ck.corr_fused(packed[0], packed[1:], c)
+    ref = ck.corr_fused_plain(packed[0], packed[1:], c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    if kind == "mixed":
+        far = out[0, 0, 0:3], out[0, 1, 0:3], out[0, 2, 1]
+        assert all(bool((f == 0).all()) for f in far)
+        assert int(torch.count_nonzero(out[0, 3, 2:6])) > 0
+
+
+@pytest.mark.cuda
+def test_corr_fused_unaligned_levels(cuda_device):
+    """f2 levels that start 4 bytes past a 16-byte boundary take the 4-byte
+    copies even at C = 128."""
+    f1, f2, coords = _inputs(14, C=128)
+    packed = tcorr.corr_feat_pack(torch.from_numpy(f1).to(cuda_device),
+                                  torch.from_numpy(f2).to(cuda_device))
+    shifted = []
+    for p in packed[1:]:
+        buf = torch.empty(p.numel() + 2, dtype=p.dtype, device=cuda_device)
+        view = buf[2:].view(p.shape)
+        view.copy_(p)
+        shifted.append(view)
+    assert all(s.data_ptr() % 16 == 4 for s in shifted)
+    c = torch.from_numpy(coords).to(cuda_device)
+    out = ck.corr_fused(packed[0], shifted, c)
+    ref = ck.corr_fused_plain(packed[0], packed[1:], c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_launch_counters(cuda_device):
+    """Each wrapper counts one launch per call on the card, and none for its
+    plain version or a CPU call."""
+    f1, f2, coords = _inputs(15)
+    t1, t2 = torch.from_numpy(f1), torch.from_numpy(f2)
+    c = torch.from_numpy(coords)
+    vols = tcorr.corr_pyramid(t1.to(cuda_device), t2.to(cuda_device))
+    packed = tcorr.corr_feat_pack(t1.to(cuda_device), t2.to(cuda_device))
+    n1, n8, n2 = ck.corr_lookup.launches, ck.corr_lookup.int8_launches, ck.corr_fused.launches
+    ck.corr_lookup(vols, c.to(cuda_device))
+    ck.corr_lookup_plain(vols, c.to(cuda_device))
+    ck.corr_lookup(tcorr.corr_pyramid(t1, t2), c)
+    q, s = map(list, zip(*(tcorr.quantize_volume(v) for v in vols)))
+    ck.corr_lookup(q, c.to(cuda_device), scales=s)
+    ck.corr_fused(packed[0], packed[1:], c.to(cuda_device))
+    ck.corr_fused_plain(packed[0], packed[1:], c.to(cuda_device))
+    ck.corr_fused(t1, [t2], c, prescaled=False)
+    torch.cuda.synchronize()
+    assert (ck.corr_lookup.launches - n1, ck.corr_lookup.int8_launches - n8,
+            ck.corr_fused.launches - n2) == (2, 1, 1)

@@ -155,7 +155,7 @@ def _lib():
 
 # ------------------------------------------------------------------- K2
 
-MAX_CHANNELS = 256  # the kernel keeps a lane's C/32 channels in registers
+MAX_CHANNELS = 256  # shared memory holds 256 rows of C bf16 channels and the dots
 PLAIN_CHUNK_BYTES = 1 << 24  # f32 neighbourhood gather per plain chunk (cache-sized)
 
 
@@ -280,7 +280,7 @@ def corr_fused(f1, f2_pyr, coords, radius: int = RADIUS, prescaled: bool = True)
         stream = torch.cuda.current_stream().cuda_stream
     rc = lib.vipe_corr_fused(
         f1.data_ptr(), *fptr, *dims, coords.data_ptr(), out.data_ptr(),
-        E * h1 * w1, h1 * w1, C, L, stream,
+        E, h1, w1, C, L, stream,
     )
     if rc != 0:
         raise RuntimeError(f"corr_fused kernel failed to launch: CUDA error {rc}")
@@ -296,6 +296,6 @@ def _fused_lib():
     fn = lib.vipe_corr_fused
     if fn.argtypes is None:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 5 + [ci] * 8 + [vp, vp, cll, cll, ci, ci, vp]
+        fn.argtypes = [vp] * 5 + [ci] * 8 + [vp, vp, cll, ci, ci, ci, ci, vp]
         fn.restype = ci
     return lib
