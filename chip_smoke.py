@@ -19,18 +19,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shape (packed features, C = 128) and on the odd grid; times the kernel
    (also on coords of a pure shift and on coords uniform over the plane),
    the plain version and the route it replaces (``corr_pyramid`` + K1);
-5. checks the SLAM machinery on the card against ground truth: a tiny
-   synthetic scene whose update operator is a geometric oracle (GT flow,
-   unit weights) must give back the GT trajectory;
-6. drives four main paths, each a seeded synthetic 720p stream through
+5. checks the SLAM machinery on the card against ground truth: tiny
+   synthetic scenes whose update operator is a geometric oracle (GT flow,
+   unit weights) must give back the GT trajectory, through the pinhole,
+   the MEI and the panorama camera;
+6. drives six main paths, each a seeded synthetic 720p stream through
    ``DefaultAnnotationPipeline`` on ``cuda`` (random DroidNet weights from a
    seed), with the kernels' launch counts set to 0 just before and read
-   just after: the default (volume, bf16), ``slam.corr_mode: alt``,
-   ``slam.corr_dtype: int8`` and the default again; prints frames,
-   keyframes, wall seconds, fps, peak memory (overall and per stage), stage
-   host seconds and launches of each.  A spy copies to host memory the
-   coords of the first frontend call (at the largest edge count) and of the
-   first backend call that reach each kernel;
+   just after: the default (volume, bf16, speculative keyframe ordering),
+   ``slam.corr_mode: alt``, ``slam.corr_dtype: int8``, the default again,
+   the reference ordering (``keyframe_spec_depth: 1``, ``proximity_spec:
+   false``), and an MEI camera with the stream's own intrinsics
+   (``init.intrinsics: gt``), masks with an invalid band and the constant
+   keyframe depth prior; prints frames, keyframes, removals (late ones
+   too), waits on deferred reads, wall seconds, fps, peak memory (overall
+   and per stage), stage host seconds and launches of each.  A spy copies
+   to host memory the coords of the first frontend call (at the largest
+   edge count) and of the first backend call that reach each kernel;
 7. times K1 (volume run) and K2 (alt run) on those captured coords, with
    seeded features of the same shapes, warm and with a cold L2 cache;
 8. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
@@ -66,6 +71,8 @@ MAIN_FRAMES = 32
 MAIN_KEYFRAMES = 12  # about one frame in three, the rate trained weights give on footage
 MAIN_H, MAIN_W = 720, 1280
 FRONTEND_EDGES = 48  # FactorGraph max_factors of the frontend
+# a 720p fisheye-like MEI camera: focal, principal point, k1
+MEI_INTRINSICS = [900.0, 900.0, MAIN_W / 2.0, MAIN_H / 2.0, 0.6]
 
 
 def _require_environment():
@@ -421,9 +428,27 @@ def fused_kernel_phase():
 # ------------------------------------------------------- oracle (ground truth)
 
 
-def oracle_phase():
+def aligned_ate(traj: np.ndarray, gt: np.ndarray) -> float:
+    """Position RMSE after the Umeyama similarity that best aligns ``traj``
+    to ``gt`` (both (T, 7) camera-to-world)."""
+    src, dst = traj[:, :3].astype(np.float64), gt[:, :3].astype(np.float64)
+    xs, xd = src - src.mean(0), dst - dst.mean(0)
+    U, D, Vt = np.linalg.svd(xd.T @ xs / len(src))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    s = np.trace(np.diag(D) @ S) / max((xs ** 2).sum() / len(src), 1e-12)
+    aligned = s * xs @ R.T + dst.mean(0)
+    return float(np.sqrt(((aligned - dst) ** 2).sum(-1).mean()))
+
+
+def oracle_phase(camera: str = "pinhole"):
     """Tiny synthetic scene, geometric-oracle update operator, on the card:
-    the recovered camera-to-world translations must match ground truth."""
+    the recovered camera-to-world trajectory must match ground truth.  The
+    pinhole scene's translations to 0.02 RMSE; the MEI (k1 = 0.6) and
+    panorama scenes of the JAX package's tests to their aligned-ATE limit
+    of 0.03 (the panorama's pole row carries no weight, as there)."""
     import torch
 
     from vipe_tpu_torch.ops import cameras as cam
@@ -433,7 +458,8 @@ def oracle_phase():
 
     H, W, T, depth = 48, 64, 12, 2.0
     ht, wd = H // 8, W // 8
-    rng = np.random.default_rng(3)
+    camera_type = cam.CameraType(camera)
+    rng = np.random.default_rng({"pinhole": 3, "mei": 5, "panorama": 11}[camera])
     c2w = [lie.se3_identity()]
     for _ in range(1, T):
         xi = torch.tensor([0.06, 0.005 * rng.normal(), 0.004 * rng.normal(),
@@ -444,7 +470,13 @@ def oracle_phase():
     gt_w2c = lie.se3_inv(gt_c2w)
     u, v = geom.pixel_grid(ht, wd)
     gt_disps = ((1.0 / depth) * (1.0 + 0.1 * torch.sin(u / 2.0) * torch.cos(v / 1.5))).expand(T, ht, wd)
-    intr_full = np.asarray([W * 1.2, W * 1.2, W / 2.0, H / 2.0], np.float32)
+    if camera == "panorama":
+        intr_full = np.zeros(4, np.float32)  # panorama streams carry all-zero intrinsics
+        intr_grid = cam.panorama_intrinsics(ht, wd)
+    else:
+        intr_full = np.asarray([W * 1.2, W * 1.2, W / 2.0, H / 2.0] + ([0.6] if camera == "mei" else []),
+                               np.float32)
+        intr_grid = cam.scaled_intrinsics(camera_type, torch.from_numpy(intr_full), 1 / 8.0)
     images = [rng.random((H, W, 3)).astype(np.float32) for _ in range(T)]
 
     class Scene(VideoStream):
@@ -467,7 +499,7 @@ def oracle_phase():
 
     dev = torch.device("cuda")
     P, D = gt_w2c.to(dev), gt_disps.contiguous().to(dev)
-    I_grid = torch.as_tensor(intr_full / 8.0, device=dev)
+    I_grid = intr_grid.to(dev)
     live = {}
 
     class SpyBuffer(slam_system.GraphBuffer):
@@ -480,10 +512,14 @@ def oracle_phase():
         coords1 = motn[..., :2] + geom.coords_grid(ht, wd, dev)
         fi = torch.as_tensor(buf.tstamp[ii.cpu().numpy()], device=dev)
         fj = torch.as_tensor(buf.tstamp[jj.cpu().numpy()], device=dev)
-        gt_coords, gt_valid = geom.reproject(P, D, I_grid, cam.CameraType.PINHOLE, fi, fj)
+        gt_coords, gt_valid = geom.reproject(P, D, I_grid, camera_type, fi, fj)
         delta = gt_coords - coords1
-        weight = gt_valid[..., None].float().expand_as(delta)
+        weight = gt_valid[..., None].float().expand_as(delta).clone()
+        if camera == "panorama":
+            weight[:, 0] = 0.0
         return net, delta, weight, torch.full((num_frames, ht, wd), 0.01, device=dev)
+
+    oracle.host_only = True  # reads host state: the sequential frontend
 
     def zeros(images):
         return torch.zeros((images.shape[0], ht, wd, 128), dtype=torch.bfloat16, device=dev)
@@ -493,29 +529,44 @@ def oracle_phase():
     try:
         out = slam_system.SLAMSystem(
             config=dict(resize_area=H * W, filter_thresh=-1.0, keyframe_thresh=0.0,
-                        warmup=4, buffer=64, infill_chunk_size=6, backend_iters=12),
-            device="cuda", update_fn=oracle, encode_features=zeros,
+                        warmup=4, buffer=64, infill_chunk_size=6,
+                        backend_iters=12 if camera == "pinhole" else 8),
+            device=dev, update_fn=oracle, encode_features=zeros,
             encode_context=lambda im: (zeros(im), zeros(im)),
-        ).run(Scene())
+        ).run(Scene(), camera_type=camera_type)
     finally:
         slam_system.GraphBuffer = orig
-    err = np.sqrt(np.mean(np.sum((out.trajectory[:, :3] - gt_c2w[:, :3].numpy()) ** 2, -1)))
-    if not (out.trajectory.shape == (T, 7) and np.isfinite(out.trajectory).all() and err < 0.02):
-        raise AssertionError(f"oracle SLAM on the card: translation RMSE {err} (limit 0.02)")
-    return {"frames": T, "keyframes": len(out.keyframes), "translation_rmse": float(err),
-            "limit": 0.02}
+    finite = out.trajectory.shape == (T, 7) and np.isfinite(out.trajectory).all()
+    if camera == "pinhole":
+        err = float(np.sqrt(np.mean(np.sum((out.trajectory[:, :3] - gt_c2w[:, :3].numpy()) ** 2, -1))))
+        metric, limit = "translation_rmse", 0.02
+    else:
+        err, metric, limit = aligned_ate(out.trajectory, gt_c2w.numpy()), "aligned_ate", 0.03
+    if not (finite and err < limit):
+        raise AssertionError(f"{camera} oracle SLAM on the card: {metric} {err} (limit {limit})")
+    if out.intrinsics.shape != (camera_type.intrinsics_dim(),):
+        raise AssertionError(f"{camera} oracle SLAM: intrinsics {out.intrinsics.shape}")
+    return {"camera": camera, "frames": T, "keyframes": len(out.keyframes), metric: err,
+            "limit": limit}
 
 
 # ------------------------------------------------------------------ main path
 
 
-def synth_stream(n_frames: int, h: int = MAIN_H, w: int = MAIN_W, seed: int = 0):
+def synth_stream(n_frames: int, h: int = MAIN_H, w: int = MAIN_W, seed: int = 0,
+                 intrinsics=None, mask_rows: int = 0):
     """A textured canvas translated frame by frame (real flow, no parallax),
-    made from ``seed``."""
+    made from ``seed``.  With ``intrinsics`` every frame carries them; with
+    ``mask_rows`` every frame's validity mask marks that many bottom rows
+    invalid (a band, like a car's hood)."""
     from vipe_tpu_torch.streams.base import FrameAttribute, VideoFrame, VideoStream
 
     rng = np.random.default_rng(seed)
     base = rng.random((h + 64, w + 64, 3)).astype(np.float32)
+    mask = None
+    if mask_rows:
+        mask = np.ones((h, w), bool)
+        mask[h - mask_rows:] = False
 
     class Synth(VideoStream):
         _name = f"synth{seed}"
@@ -527,12 +578,19 @@ def synth_stream(n_frames: int, h: int = MAIN_H, w: int = MAIN_W, seed: int = 0)
             return (h, w)
 
         def attributes(self):
-            return {FrameAttribute.RGB}
+            attrs = {FrameAttribute.RGB}
+            if intrinsics is not None:
+                attrs.add(FrameAttribute.INTRINSICS)
+            if mask is not None:
+                attrs.add(FrameAttribute.MASK)
+            return attrs
 
         def __iter__(self):
             for k in range(n_frames):
                 ox, oy = (k * 5) % 64, (k * 3) % 64
-                yield VideoFrame(raw_frame_idx=k, rgb=base[oy: oy + h, ox: ox + w])
+                yield VideoFrame(
+                    raw_frame_idx=k, rgb=base[oy: oy + h, ox: ox + w], mask=mask,
+                    intrinsics=None if intrinsics is None else np.array(intrinsics, np.float32))
 
     return Synth()
 
@@ -706,23 +764,27 @@ def mainpath_coords_phase(kernels):
             torch.cuda.empty_cache()
 
 
-def main_path_phase(label, slam_cfg, n_frames, thresh, required):
+def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
+                    init=None):
     """One run of the main path with ``slam_cfg`` over ``n_frames`` of the
-    seeded stream.  ``required`` names the launch counts that must be > 0."""
+    seeded stream (``stream_kw``: its intrinsics and mask band).
+    ``required`` names the launch counts that must be > 0."""
     import gc
 
     import torch
 
+    from vipe_tpu_torch.ops import cameras as cam
     from vipe_tpu_torch.ops import corr_kernels as ck
     from vipe_tpu_torch.pipeline.default import DefaultAnnotationPipeline
     from vipe_tpu_torch.utils import profiling
 
-    stream = synth_stream(n_frames)
+    stream = synth_stream(n_frames, **(stream_kw or {}))
     pipe = DefaultAnnotationPipeline(
-        init={"intrinsics": "fov", "fov_deg": 60.0},
+        init=init or {"intrinsics": "fov", "fov_deg": 60.0},
         slam={"optimize_intrinsics": True, "filter_thresh": thresh, **slam_cfg},
         output={"path": None}, device="cuda", return_payload=True,
     )
+    n_intr = cam.CameraType(slam_cfg.get("camera_type", "pinhole")).intrinsics_dim()
     gc.collect()
     torch.cuda.empty_cache()
     profiling.snapshot(reset=True)
@@ -745,7 +807,7 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required):
     traj = np.asarray(out.trajectory)
     if traj.shape != (n_frames, 7) or not np.isfinite(traj).all():
         raise AssertionError(f"{label} main path: trajectory {traj.shape} not finite / wrong shape")
-    if not np.isfinite(out.intrinsics).all() or out.intrinsics.shape != (4,):
+    if not np.isfinite(out.intrinsics).all() or out.intrinsics.shape != (n_intr,):
         raise AssertionError(f"{label} main path: intrinsics {out.intrinsics}")
     quat_norm = np.linalg.norm(traj[:, 3:], axis=-1)
     if not np.allclose(quat_norm, 1.0, atol=1e-3):
@@ -764,6 +826,8 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required):
         "stages_host_s": stages,
         "intrinsics": [float(x) for x in out.intrinsics],
         "ba_residual": float(out.ba_residual),
+        # frontend: keyframes removed, removed late, waits on deferred reads
+        **slam_out.frontend_stats,
     }, captured
 
 
@@ -789,20 +853,31 @@ def main():
     print(json.dumps({"kernel_check": {"K1": k1["cases"]}}), flush=True)
     k2 = fused_kernel_phase()
     print(json.dumps({"kernel_check": {"K2": k2["cases"]}}), flush=True)
-    print(json.dumps({"oracle": oracle_phase()}), flush=True)
+    for camera in ("pinhole", "mei", "panorama"):
+        print(json.dumps({"oracle": oracle_phase(camera)}), flush=True)
 
     thresh = calibrate_filter_thresh(synth_stream(MAIN_FRAMES), MAIN_KEYFRAMES)
+    # the default ordering (keyframe_spec_depth 2, proximity_spec true)
+    # unless a run says otherwise
+    mei = {"intrinsics": MEI_INTRINSICS, "mask_rows": MAIN_H // 6}
     runs = [
-        ("volume", {}, MAIN_FRAMES, ["corr_lookup"]),
-        ("alt", {"corr_mode": "alt"}, MAIN_FRAMES, ["corr_lookup", "corr_fused"]),
-        ("int8", {"corr_dtype": "int8"}, MAIN_FRAMES, ["corr_lookup", "corr_lookup_int8"]),
+        ("volume", {}, MAIN_FRAMES, ["corr_lookup"], {}),
+        ("alt", {"corr_mode": "alt"}, MAIN_FRAMES, ["corr_lookup", "corr_fused"], {}),
+        ("int8", {"corr_dtype": "int8"}, MAIN_FRAMES, ["corr_lookup", "corr_lookup_int8"], {}),
         # the first run again: how far host-bound times drift within one call
-        ("volume_again", {}, MAIN_FRAMES, ["corr_lookup"]),
+        ("volume_again", {}, MAIN_FRAMES, ["corr_lookup"], {}),
+        # the reference ordering, beside the default one
+        ("volume_reference_order", {"keyframe_spec_depth": 1, "proximity_spec": False},
+         MAIN_FRAMES, ["corr_lookup"], {}),
+        # MEI camera, the stream's own 5-parameter intrinsics, an invalid
+        # band in every frame's mask, the constant keyframe depth prior
+        ("mei_masks_depth", {"camera_type": "mei", "keyframe_depth": "constant-2.0"},
+         MAIN_FRAMES, ["corr_lookup"], {"stream_kw": mei, "init": {"intrinsics": "gt"}}),
     ]
     main_paths, captured = {}, {}
-    for label, cfg, n_frames, required in runs:
+    for label, cfg, n_frames, required, kw in runs:
         main_paths[label], captured[label] = main_path_phase(label, cfg, n_frames, thresh,
-                                                             required)
+                                                             required, **kw)
         print(json.dumps({"main_path": main_paths[label]}), flush=True)
 
     k1["launches"] = main_paths["volume"]["launches"]["corr_lookup"]

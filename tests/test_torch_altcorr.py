@@ -15,6 +15,7 @@ Tolerances, each with its reason and the error measured on the CPU:
     on-the-fly dots are not (measured ≤2.4e-3).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +25,10 @@ from vipe_tpu.ops import corr as jcorr
 from vipe_tpu.ops.pallas_corr import corr_fused_pallas
 from vipe_tpu_torch.ops import corr as tcorr
 from vipe_tpu_torch.ops import corr_kernels as ck
+
+# the XLA reference as one compiled program instead of an eager dispatch per op
+_jax_lookup = jax.jit(jcorr.corr_lookup_pyramid, static_argnums=2)
+
 
 GRIDS = [(6, 8), (7, 9), (2, 3)]
 
@@ -74,7 +79,7 @@ def test_feat_pack_bit_exact(hw):
 def test_lookup_matches_xla_alt_path(hw):
     f1, f2, coords = _inputs(1, H=hw[0], W=hw[1], spread=1.0 if hw == (2, 3) else 2.0)
     jp, tp = _packed(f1, f2)
-    ref = np.asarray(jcorr.corr_lookup_pyramid(jp, jnp.asarray(coords)))
+    ref = np.asarray(_jax_lookup(jp, jnp.asarray(coords)))
     out = tcorr.corr_lookup_pyramid(tp, torch.from_numpy(coords)).numpy()
     assert out.shape == ref.shape == coords.shape[:3] + (196,)
     assert np.abs(ref).max() > 0.1
@@ -127,7 +132,7 @@ def test_clamped_tiny_grid():
     jp, tp = _packed(f1, f2)
     assert [tuple(p.shape[1:3]) for p in tp[1:]] == [(2, 3), (1, 1), (1, 1), (1, 1)]
     out = tcorr.corr_lookup_pyramid(tp, torch.from_numpy(coords)).numpy()
-    ref = np.asarray(jcorr.corr_lookup_pyramid(
+    ref = np.asarray(_jax_lookup(
         jcorr.corr_pyramid(jnp.asarray(f1), jnp.asarray(f2)), jnp.asarray(coords)))
     assert out.shape[-1] == 196
     np.testing.assert_allclose(out, ref, rtol=0, atol=2e-2)

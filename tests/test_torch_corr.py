@@ -14,6 +14,7 @@ Tolerances:
     against JAX's int8 lookup (which contracts with bf16 selection weights).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,10 @@ from vipe_tpu.ops import corr as jcorr
 from vipe_tpu.ops.pallas_corr import corr_lookup_pyramid_pallas
 from vipe_tpu_torch.ops import corr as tcorr
 from vipe_tpu_torch.ops import corr_kernels as ck
+
+# the XLA reference as one compiled program instead of an eager dispatch per op
+_jax_lookup = jax.jit(jcorr.corr_lookup_pyramid, static_argnums=2)
+
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -104,7 +109,7 @@ class TestPyramid:
 class TestLookup:
     def test_matches_xla_path(self, case):
         _, _, coords, jpyr, tpyr = case
-        ref = np.asarray(jcorr.corr_lookup_pyramid(jpyr, jnp.asarray(coords)))
+        ref = np.asarray(_jax_lookup(jpyr, jnp.asarray(coords)))
         out = tcorr.corr_lookup_pyramid(tpyr, torch.from_numpy(coords)).numpy()
         assert out.shape == ref.shape == coords.shape[:3] + (196,)
         np.testing.assert_allclose(out, ref, rtol=0, atol=2e-2)
@@ -134,7 +139,7 @@ class TestLookup:
         f1, f2, coords = _inputs(4, H=2, W=3, spread=1.0)
         jpyr = jcorr.corr_pyramid(jnp.asarray(f1), jnp.asarray(f2))
         assert [p.shape[-2:] for p in jpyr] == [(2, 3), (1, 1), (1, 1), (1, 1)]
-        ref = np.asarray(jcorr.corr_lookup_pyramid(jpyr, jnp.asarray(coords)))
+        ref = np.asarray(_jax_lookup(jpyr, jnp.asarray(coords)))
         out = ck.corr_lookup(_to_torch(jpyr), torch.from_numpy(coords)).numpy()
         assert out.shape[-1] == 196
         np.testing.assert_allclose(out, ref, rtol=0, atol=2e-2)
@@ -156,8 +161,7 @@ class TestLookup:
     def test_int8_with_scales(self, case):
         _, _, coords, jpyr, _ = case
         qs = [jcorr.quantize_volume(p) for p in jpyr]
-        ref = np.asarray(jcorr.corr_lookup_pyramid([jcorr.QVol(q, s) for q, s in qs],
-                                                   jnp.asarray(coords)))
+        ref = np.asarray(_jax_lookup([jcorr.QVol(q, s) for q, s in qs], jnp.asarray(coords)))
         vols = [torch.from_numpy(np.asarray(q)) for q, _ in qs]
         scales = [torch.from_numpy(np.asarray(s)) for _, s in qs]
         out = tcorr.corr_lookup_pyramid(vols, torch.from_numpy(coords), scales=scales).numpy()

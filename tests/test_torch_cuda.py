@@ -239,3 +239,59 @@ def test_launch_counters(cuda_device):
     torch.cuda.synchronize()
     assert (ck.corr_lookup.launches - n1, ck.corr_lookup.int8_launches - n8,
             ck.corr_fused.launches - n2) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corr_mode,corr_dtype", [("volume", "bf16"), ("volume", "int8"),
+                                                  ("alt", "bf16")])
+def test_late_removal_lookups_match_plain(cuda_device, corr_mode, corr_dtype):
+    """A late removal on the card (``rm_keyframe(ix, top)`` above
+    ``n_frames``, after an eviction into the inactive store) compacts the
+    graph's correlation rows: they equal a fresh build for the surviving
+    edges, and K1 (K2 in alt mode) on them equals its plain version."""
+    from vipe_tpu_torch.slam.buffer import GraphBuffer
+    from vipe_tpu_torch.slam.factor_graph import FactorGraph
+
+    H, W, n = 48, 64, 6
+    rng = np.random.default_rng(9)
+    buf = GraphBuffer(height=H, width=W, buffer_size=16, device=cuda_device)
+    intr = np.asarray([W, W, W / 2, H / 2], np.float32)
+    for k in range(n):
+        feats = [torch.from_numpy(rng.standard_normal((H // 8, W // 8, 128)).astype(np.float32))
+                 .to(cuda_device, torch.bfloat16) for _ in range(3)]
+        buf.append_keyframe(k, torch.zeros((H, W, 3), dtype=torch.uint8), *feats, intrinsics=intr)
+        buf.poses[k, 0] = 0.1 * k
+    g = FactorGraph(buf, None, max_factors=16, incremental=True, corr_mode=corr_mode,
+                    corr_dtype=corr_dtype)
+    g.add_neighborhood_factors(0, n, r=1)
+    evict = np.zeros(g.n_edges, bool)
+    evict[[1, 4]] = True
+    g.rm_factors(evict, store=True)
+    g.rm_keyframe(2, top=n)
+    assert buf.n_frames == n - 1 and g.n_edges > 0
+    ii = torch.from_numpy(g.ii).to(cuda_device)
+    jj = torch.from_numpy(g.jj).to(cuda_device)
+    f1, f2 = buf.fmaps[ii].float(), buf.fmaps[jj].float()
+    fresh = tcorr.corr_feat_pack(f1, f2) if corr_mode == "alt" else tcorr.corr_pyramid(f1, f2)
+    for stored, ref in zip(g.corr_pyr, fresh):
+        if g.corr_q:
+            continue  # int8 rows: checked through the lookup below
+        torch.testing.assert_close(stored.float(), ref.float(), rtol=0, atol=0)
+    coords, _ = buf.reproject(g.ii, g.jj)
+    coords = coords.contiguous()
+    if corr_mode == "alt":
+        before = ck.corr_fused.launches
+        out = tcorr.corr_lookup_pyramid(g.corr_pyr, coords)
+        assert ck.corr_fused.launches == before + 1
+        ref = ck.corr_fused_plain(g.corr_pyr[0], g.corr_pyr[1:], coords, prescaled=True)
+    else:
+        before = ck.corr_lookup.launches
+        out = tcorr.corr_lookup_pyramid(g.corr_pyr, coords, scales=g.corr_scale)
+        assert ck.corr_lookup.launches == before + 1
+        ref = ck.corr_lookup_plain(g.corr_pyr, coords, scales=g.corr_scale)
+        if g.corr_q:
+            deq = tcorr.corr_lookup_pyramid(fresh, coords)
+            assert float((out - deq).abs().max()) < 1.5e-2 * float(deq.abs().max())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert int(torch.count_nonzero(out)) > 0

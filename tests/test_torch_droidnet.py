@@ -9,6 +9,8 @@ differently), and ~15 layers compound that: 5e-2 of the output's largest
 magnitude (measured 2.5e-2 for the feature encoder, ≤1e-2 for the update).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from vipe_tpu.models.convert import convert_droidnet
+from vipe_tpu.models.droidnet import CORR_PLANES
 from vipe_tpu.models.droidnet import DroidNet as JaxDroidNet
 from vipe_tpu.models.droidnet import init_droidnet
 from vipe_tpu_torch.models import droidnet as tdn
@@ -37,9 +40,19 @@ def _one_torch_thread():
 
 
 
+@functools.lru_cache(maxsize=None)
+def jax_droidnet_params(ht: int = HT, wd: int = WD):
+    """The params ``init_droidnet(PRNGKey(0), ht, wd)`` makes, initialised
+    under ``jax.jit``: one compile instead of an eager dispatch per layer."""
+    model = JaxDroidNet()
+    args = (jnp.zeros((1, ht * 8, wd * 8, 3)), jnp.zeros((1, ht, wd, CORR_PLANES)),
+            jnp.zeros((1, ht, wd, 4)), jnp.zeros((1,), jnp.int32))
+    return jax.jit(lambda key: model.init(key, *args, 1))(jax.random.PRNGKey(0))
+
+
 @pytest.fixture(scope="module")
 def weights():
-    _, params = init_droidnet(jax.random.PRNGKey(0), HT, WD)
+    params = jax_droidnet_params(HT, WD)
     params_np = jax.tree_util.tree_map(np.asarray, params)
     return params, droidnet_state_dict_from_flax(params_np), params_np
 

@@ -24,6 +24,7 @@ from vipe_tpu_torch.ops import lie as tlie
 ATOL = 1e-5
 N, HT, WD = 6, 6, 8
 INTR = np.array([8.0, 8.5, 4.0, 3.0], np.float32)
+INTR_MEI = np.array([8.0, 8.5, 4.0, 3.0, 0.6], np.float32)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -135,9 +136,80 @@ class TestCameras:
 
     @pytest.mark.parametrize("name", ["mei", "panorama"])
     def test_other_models_raise(self, name):
-        with pytest.raises(NotImplementedError):
-            tcam.iproj_disp(tcam.CameraType(name), _t(INTR), _t(np.zeros(2, np.float32)),
-                            _t(np.zeros(2, np.float32)), _t(np.ones(2, np.float32)))
+        """MEI and panorama are ported (``TestOmniCameras``); the model that
+        neither package implements still raises."""
+        z = _t(np.zeros(2, np.float32))
+        intr = _t(INTR_MEI if name == "mei" else INTR)
+        assert tcam.iproj_disp(tcam.CameraType(name), intr, z, z, z + 1).shape == (2, 4)
+        for fn, args in ((tcam.iproj_disp, (z, z, z + 1)),
+                         (tcam.proj_points, (_t(np.ones((2, 4), np.float32)),)),
+                         (tcam.pinhole_equivalent, ())):
+            with pytest.raises(ValueError):
+                fn(tcam.CameraType.SIMPLE_DIVISIONAL, _t(INTR), *args)
+
+
+def _omni_case(name):
+    """Camera type, full grid-scale intrinsics and a point set for a model:
+    MEI with k1 = 0.6; the panorama at the SLAM grid, with the two poles,
+    points on the x = z = 0 axis and on the ±π seam added."""
+    ct = tcam.CameraType(name)
+    intr = INTR_MEI if name == "mei" else np.asarray(jcam.panorama_intrinsics(HT, WD))
+    rng = np.random.default_rng(5)
+    pts = np.concatenate([rng.standard_normal((40, 3)), rng.uniform(0.2, 1.0, (40, 1))], -1)
+    pts[:, 2] = np.abs(pts[:, 2]) + 0.2
+    if name == "panorama":
+        pts[:, 2] = rng.standard_normal(40)
+        pts[:4, :3] = [[0, 1, 0], [0, -1, 0], [0, 2.5, 0], [-1e-3, 0.3, -1.0]]
+    return ct, intr.astype(np.float32), pts.astype(np.float32)
+
+
+class TestOmniCameras:
+    """MEI and panorama ``iproj_disp``/``proj_points``/``pinhole_equivalent``
+    against ``vipe_tpu.ops.cameras`` to 1e-5 (f32), poles included."""
+
+    @pytest.mark.parametrize("name", ["mei", "panorama"])
+    def test_iproj(self, scene, name):
+        ct, intr, _ = _omni_case(name)
+        _, disps, _, _ = scene
+        u, v = (np.asarray(a) for a in jgeom.pixel_grid(HT, WD))
+        pj = jcam.iproj_disp(jcam.CameraType(name), jnp.asarray(intr), jnp.asarray(u),
+                             jnp.asarray(v), jnp.asarray(disps[0]))
+        pt = tcam.iproj_disp(ct, _t(intr), _t(u), _t(v), _t(disps[0]))
+        np.testing.assert_allclose(_np(pt), _np(pj), rtol=0, atol=ATOL)
+
+    @pytest.mark.parametrize("name", ["mei", "panorama"])
+    def test_proj(self, name):
+        ct, intr, pts = _omni_case(name)
+        for lim in (True, False):
+            cj = jcam.proj_points(jcam.CameraType(name), jnp.asarray(intr), jnp.asarray(pts), lim)
+            ct_ = tcam.proj_points(ct, _t(intr), _t(pts), lim)
+            np.testing.assert_allclose(_np(ct_), _np(cj), rtol=1e-5, atol=ATOL)
+
+    @pytest.mark.parametrize("name", ["mei", "panorama"])
+    def test_proj_derivative_finite_at_poles(self, name):
+        """The pole guards: forward derivatives stay finite on every point,
+        and equal JAX's."""
+        ct, intr, pts = _omni_case(name)
+        tan = np.ones_like(pts)
+        _, dj = jax.jit(lambda p, t: jax.jvp(
+            lambda q: jcam.proj_points(jcam.CameraType(name), jnp.asarray(intr), q), (p,), (t,))
+        )(jnp.asarray(pts), jnp.asarray(tan))
+        _, dt = torch.func.jvp(lambda p: tcam.proj_points(ct, _t(intr), p), (_t(pts),), (_t(tan),))
+        assert np.isfinite(_np(dt)).all()
+        np.testing.assert_allclose(_np(dt), _np(dj), rtol=1e-4, atol=1e-3)
+
+    @pytest.mark.parametrize("name", ["pinhole", "mei", "panorama"])
+    def test_pinhole_equivalent_and_matrix(self, name):
+        intr = {"pinhole": INTR, "mei": INTR_MEI}.get(name, np.zeros(4, np.float32))
+        np.testing.assert_allclose(
+            _np(tcam.pinhole_equivalent(tcam.CameraType(name), _t(intr))),
+            _np(jcam.pinhole_equivalent(jcam.CameraType(name), jnp.asarray(intr))), rtol=1e-6)
+        np.testing.assert_allclose(_np(tcam.intrinsics_matrix(_t(intr))),
+                                   _np(jcam.intrinsics_matrix(jnp.asarray(intr))))
+
+    def test_panorama_intrinsics(self):
+        np.testing.assert_allclose(_np(tcam.panorama_intrinsics(384, 768)),
+                                   _np(jcam.panorama_intrinsics(384, 768)), rtol=1e-6)
 
 
 class TestGeom:
@@ -165,6 +237,31 @@ class TestGeom:
                                       _t(ii), _t(jj))
         np.testing.assert_allclose(_np(ct), _np(cj), rtol=1e-5, atol=1e-4)
         np.testing.assert_array_equal(_np(vt), _np(vj))
+
+    @pytest.mark.parametrize("name", ["mei", "panorama"])
+    def test_reproject_omni(self, scene, name):
+        """Reprojection under MEI and the panorama (whose validity is a
+        minimum range) against ``vipe_tpu.ops.geom``."""
+        ct, intr, _ = _omni_case(name)
+        poses, disps, ii, jj = scene
+        cj, vj = jgeom.reproject(jnp.asarray(poses), jnp.asarray(disps), jnp.asarray(intr),
+                                 jcam.CameraType(name), jnp.asarray(ii), jnp.asarray(jj))
+        ct_, vt = tgeom.reproject(_t(poses), _t(disps), _t(intr), ct, _t(ii), _t(jj))
+        np.testing.assert_allclose(_np(ct_), _np(cj), rtol=1e-5, atol=1e-4)
+        np.testing.assert_array_equal(_np(vt), _np(vj))
+
+    @pytest.mark.parametrize("name", ["mei", "panorama"])
+    def test_frame_distance_omni(self, scene, name):
+        """Frame distances take the camera's pinhole equivalent, as the
+        JAX buffer does."""
+        ct, intr, _ = _omni_case(name)
+        poses, disps, ii, jj = scene
+        pin_j = jcam.pinhole_equivalent(jcam.CameraType(name), jnp.asarray(intr))
+        pin_t = tcam.pinhole_equivalent(ct, _t(intr))
+        dj = jax.jit(jgeom.frame_distance)(jnp.asarray(poses), jnp.asarray(disps), pin_j,
+                                           jnp.asarray(ii), jnp.asarray(jj))
+        dt = tgeom.frame_distance(_t(poses), _t(disps), pin_t, _t(ii), _t(jj))
+        np.testing.assert_allclose(_np(dt), _np(dj), rtol=1e-5, atol=ATOL)
 
     @pytest.mark.parametrize("beta", [0.3, 0.25])
     def test_frame_distance(self, scene, beta):

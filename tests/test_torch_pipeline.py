@@ -164,23 +164,17 @@ def test_default_device_needs_cuda():
 
 
 def test_port_config_matches_jax_default():
-    """Same keys as configs/pipeline/default.yaml; the port pins the two
-    speculation knobs to the reference-exact ordering."""
+    """configs/pipeline/default.yaml, key for key and value for value (the
+    SLAM section's speculative ordering included); only the pipeline class
+    differs."""
     from vipe_tpu.utils.config import compose as jcompose
     from vipe_tpu_torch.utils.config import compose, get_config_path
 
     port = compose(get_config_path(), "default", ["pipeline=default"])["pipeline"]
     jax_cfg = jcompose(ROOT / "configs", "default", ["pipeline=default"])["pipeline"]
     assert port["instance"] == "vipe_tpu_torch.pipeline.default.DefaultAnnotationPipeline"
-    assert port["slam"]["keyframe_spec_depth"] == 1 and port["slam"]["proximity_spec"] is False
-
-    def keys(d, pre=""):
-        return {pre + k for k in d} | {x for k, v in d.items() if isinstance(v, dict)
-                                       for x in keys(v, pre + k + ".")}
-
-    assert keys(port) == keys(jax_cfg)
-    for k in ("keyframe_spec_depth", "proximity_spec"):
-        port["slam"].pop(k), jax_cfg["slam"].pop(k)
+    assert port["slam"]["keyframe_spec_depth"] == 2 and port["slam"]["proximity_spec"] is True
+    assert port["slam"] == jax_cfg["slam"]
     port.pop("instance"), jax_cfg.pop("instance")
     assert port == jax_cfg
 
@@ -200,3 +194,24 @@ def test_resize_matches_cv2(size):
     assert got.rgb.shape == ref.rgb.shape == size + (3,)
     assert np.abs(a - b).max() <= 1.0 and np.abs(a - b).mean() <= 0.5
     np.testing.assert_allclose(got.intrinsics, ref.intrinsics, rtol=1e-6)
+
+
+def test_port_sources_import_no_jax():
+    """No module of the port and not ``chip_smoke.py`` imports ``jax``,
+    ``flax`` or ``vipe_tpu``, at any depth of any function (the subprocess
+    test above sees only what one CLI run imports)."""
+    import ast
+
+    banned = {"jax", "flax", "vipe_tpu"}
+    files = sorted((ROOT / "vipe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 30
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, f"{path}: imports {name}"

@@ -3,7 +3,9 @@
 * ``ba_iteration``: one Gauss-Newton step from the same state, f32 on both
   sides; the Jacobians come from forward-mode autodiff on both, the Schur
   sums run in another order, so poses/disps agree to 1e-5 and the shared
-  focal (a sum over every pixel of every edge) to 1e-3 px.
+  focal (a sum over every pixel of every edge) to 1e-3 px; the same under
+  the MEI camera (focal and k1 optimised), the panorama (the top grid row
+  on its pole) and with every pose fixed (a stream that gives poses).
 * one ``FactorGraph.update`` round from the same buffer state with the same
   DroidNet weights in bf16: atol 2e-2, the bound that
   ``tests/test_fused_update.py`` argues for one bf16 GRU+BA round; the same
@@ -12,7 +14,10 @@
   in the same mode.
 * the graph's row machinery for packed and int8 rows: after removals the
   stored rows equal a fresh build for the surviving edges (packed: exactly;
-  int8: within 1.5e-2 of the volume's magnitude, the JAX test's bound).
+  int8: within 1.5e-2 of the volume's magnitude, the JAX test's bound); a
+  late removal (``rm_keyframe(ix, top)``, the speculative frontend's) in
+  each correlation mode leaves the JAX graph's topology, ages, inactive
+  store, buffer rows and correlation rows.
 * the slice as a whole: ``SLAMSystem.run`` of both packages on the
   geometric-oracle stream of ``tests/test_slam_system.py`` (JAX in its
   reference-exact ordering, ``keyframe_spec_depth=1, proximity_spec=False``):
@@ -20,12 +25,18 @@
   rounding over ~300 Gauss-Newton iterations, measured ≤1e-6); the same in
   ``corr_mode=alt`` and ``corr_dtype=int8``, where the inner filler's graph
   must hold packed features (alt) or bf16 volumes (int8), as the JAX
-  package's filler does.
+  package's filler does; and once more with per-frame masks, the
+  ``constant-2.0`` keyframe depth prior and a keyframe stride.  The
+  masks' downsampling equals the JAX system's ``cv2.resize`` formula; the
+  depth prior's refresh equals the JAX buffer's.
 * random-weight DroidNet runs of the port (volume and alt): finite outputs
   of the right shape.  Random-weight trajectories diverge chaotically between frameworks
   (``tests/test_frontend_deferred.py``), so none is bounded.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +44,8 @@ import torch
 
 from tests.test_slam_system import (H, HT, T, W, WD, SyntheticStream, make_gt,
                                     make_oracle)
+from vipe_tpu.streams.base import FrameAttribute as JFrameAttribute
+from vipe_tpu.ops import cameras as jcam
 from vipe_tpu.ops import lie as jlie
 from vipe_tpu.slam import ba as jba
 from vipe_tpu_torch.ops import cameras as tcam
@@ -86,8 +99,13 @@ def ba_state():
                 disp_mask=disp_mask, damp=damp, sens=sens, sens_mask=sens_mask)
 
 
+# one compile per configuration instead of an eager dispatch per operation
+_jax_ba_iteration = jax.jit(jba.ba_iteration, static_argnums=0)
+
+
 def _ba_jax(s, optimize_intrinsics):
-    cfg = jba.BAConfig(ht=s["ht"], wd=s["wd"], optimize_intrinsics=optimize_intrinsics,
+    cfg = jba.BAConfig(camera_type=jcam.CameraType(s.get("camera", "pinhole")), ht=s["ht"],
+                       wd=s["wd"], optimize_intrinsics=optimize_intrinsics,
                        max_edges_per_frame=8)
     slot = jba.build_edge_slots(s["ii"], None, s["N"], 8)
     rig = np.asarray(jlie.se3_identity((1,)))
@@ -95,12 +113,13 @@ def _ba_jax(s, optimize_intrinsics):
     args = (s["poses"], rig, s["disps"], s["intr"][None], s["target"], s["weight"], s["ii"], z,
             s["ii"], s["jj"], z, s["edge_valid"], slot, s["pose_mask"], s["disp_mask"],
             s["damp"], s["sens"], s["sens_mask"])
-    p, _, d, intr, _ = jba.ba_iteration(cfg, *map(jnp.asarray, args), 1e-3, 0.1)
+    p, _, d, intr, _ = _jax_ba_iteration(cfg, *map(jnp.asarray, args), 1e-3, 0.1)
     return np.asarray(p), np.asarray(d), np.asarray(intr[0])
 
 
 def _ba_torch(s, optimize_intrinsics):
-    cfg = tba.BAConfig(ht=s["ht"], wd=s["wd"], optimize_intrinsics=optimize_intrinsics,
+    cfg = tba.BAConfig(camera_type=tcam.CameraType(s.get("camera", "pinhole")), ht=s["ht"],
+                       wd=s["wd"], optimize_intrinsics=optimize_intrinsics,
                        max_edges_per_frame=8)
     slot = tba.build_edge_slots(s["ii"], s["N"], 8)
     args = (s["poses"], s["disps"], s["intr"], s["target"], s["weight"], s["ii"], s["jj"],
@@ -120,6 +139,42 @@ def test_ba_iteration_matches_jax(ba_state):
     np.testing.assert_allclose(dt, dj, rtol=0, atol=1e-5)
     np.testing.assert_allclose(it, ij, rtol=0, atol=1e-3)
     assert np.abs(it - ba_state["intr"]).max() > 1e-3  # the focal moved
+
+
+@pytest.fixture(scope="module", params=["mei", "panorama", "fixed_poses"])
+def ba_case(request, ba_state):
+    """``ba_state`` under the other cameras and with given poses:
+    ``mei`` optimises the 5-parameter intrinsics (shared focal and k1);
+    ``panorama`` takes the equirect intrinsics of the 48×64 frame, whose top
+    grid row lies on the pole; ``fixed_poses`` fixes every pose, as the
+    frontend does for a stream that gives its poses."""
+    s = dict(ba_state)
+    if request.param == "mei":
+        s.update(camera="mei", intr=np.array([64.0, 64.0, 32.0, 24.0, 0.6], np.float32))
+        return s, True
+    if request.param == "panorama":
+        s.update(camera="panorama",
+                 intr=np.asarray(jcam.panorama_intrinsics(8 * s["ht"], 8 * s["wd"])))
+        return s, False
+    s.update(pose_mask=np.zeros(s["N"], bool))
+    return s, False
+
+
+def test_ba_iteration_camera_matches_jax(ba_case):
+    """One Gauss-Newton step at the bounds of ``test_ba_iteration_matches_jax``;
+    the panorama's pole row stays finite."""
+    s, optimize_intrinsics = ba_case
+    pj, dj, ij = _ba_jax(s, optimize_intrinsics)
+    pt, dt, it = _ba_torch(s, optimize_intrinsics)
+    assert np.isfinite(pt).all() and np.isfinite(dt).all()
+    assert np.abs(dj - s["disps"]).max() > 1e-3  # the step moves the disparities
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dt, dj, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(it, ij, rtol=0, atol=1e-3)
+    if optimize_intrinsics:
+        assert np.abs(it - s["intr"])[[0, 4]].min() > 1e-6  # focal and k1 moved
+    if not s["pose_mask"].any():
+        np.testing.assert_array_equal(pt, s["poses"])
 
 
 def test_build_edge_slots_matches_jax(ba_state):
@@ -142,19 +197,28 @@ def test_singular_system_gives_nan_not_raise(ba_state):
 # ----------------------------------------------------------- one GRU round
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_update_fn():
+    """One jitted JAX update function for every graph of this module, so
+    its compiles are shared."""
+    from vipe_tpu.models.droidnet import DroidNet
+    from vipe_tpu.slam.system import make_droidnet_fns
+
+    return make_droidnet_fns(DroidNet())[2]
+
+
 def _jax_graph(seed=3, n=6, corr_mode="volume", corr_dtype="bf16"):
     """JAX buffer + graph as in tests/test_fused_update.py, with seeded
     random features in the slots (the encoders are held in
     test_torch_droidnet.py)."""
     import jax
 
-    from vipe_tpu.models.droidnet import init_droidnet
+    from tests.test_torch_droidnet import jax_droidnet_params
     from vipe_tpu.slam.buffer import GraphBuffer
     from vipe_tpu.slam.factor_graph import FactorGraph
-    from vipe_tpu.slam.system import make_droidnet_fns
 
-    model, params = init_droidnet(jax.random.PRNGKey(0), ht=HT, wd=WD)
-    _, _, uf = make_droidnet_fns(model)
+    params = jax_droidnet_params(HT, WD)
+    uf = _jax_update_fn()
     rng = np.random.default_rng(seed)
     buf = GraphBuffer(height=H, width=W, buffer_size=32)
     for k in range(n):
@@ -301,6 +365,49 @@ def test_corr_rows_follow_removals(corr_mode, corr_dtype):
             assert float((deq - ref).abs().max() / (ref.abs().max() + 1e-9)) < 1.5e-2
 
 
+@pytest.mark.parametrize("corr_mode,corr_dtype", [("volume", "bf16"), ("alt", "bf16"),
+                                                  ("volume", "int8")])
+def test_late_removal_matches_jax(corr_mode, corr_dtype):
+    """A late removal, ``rm_keyframe(ix, top)`` with ``top`` the slot above
+    ``n_frames`` (the speculative frontend's), after aging and an eviction
+    into the inactive store: the same topology, ages, inactive store,
+    buffer rows (the slot at ``top`` shifted down too) and correlation rows
+    as the JAX graph after the same calls, at the bounds of
+    ``_check_corr_state``."""
+    n = 6
+    params, jbuf, jg = _jax_graph(n=n, corr_mode=corr_mode, corr_dtype=corr_dtype)
+    tbuf, tg = _torch_graph_like(params, jbuf, n=n, corr_mode=corr_mode, corr_dtype=corr_dtype)
+    # an initialised next slot at n, as the frontend's keep branch leaves it
+    jbuf.poses = jbuf.poses.at[n, 0].set(0.7)
+    jbuf.disps = jbuf.disps.at[n].set(0.8)
+    tbuf.poses[n, 0], tbuf.disps[n] = 0.7, 0.8
+    ages = np.arange(jg.n_edges) % 5
+    jg.age[: jg.n_edges] = ages
+    tg.age[:] = ages
+    evict = np.zeros(jg.n_edges, bool)
+    evict[[0, 3]] = True
+    jg.rm_factors(evict, store=True)
+    tg.rm_factors(evict, store=True)
+    jg.rm_keyframe(2, top=n)
+    tg.rm_keyframe(2, top=n)
+    m = jg.n_edges
+    assert m == tg.n_edges and m < 10 and jbuf.n_frames == tbuf.n_frames == n - 1
+    np.testing.assert_array_equal(tg.ii, jg.ii[:m])
+    np.testing.assert_array_equal(tg.jj, jg.jj[:m])
+    np.testing.assert_array_equal(tg.age, jg.age[:m])
+    np.testing.assert_array_equal(tg.ii_inac, jg.ii_inac)
+    np.testing.assert_array_equal(tg.jj_inac, jg.jj_inac)
+    k = len(jg.ii_inac)
+    for name in ("target_inac", "weight_inac"):
+        np.testing.assert_allclose(getattr(tg, name).numpy(), np.asarray(getattr(jg, name)[:k]),
+                                   rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(tbuf.tstamp[: n - 1], jbuf.tstamp[: n - 1])
+    np.testing.assert_allclose(tbuf.poses[:n].numpy(), np.asarray(jbuf.poses[:n]), atol=1e-6)
+    np.testing.assert_allclose(tbuf.disps[:n].numpy(), np.asarray(jbuf.disps[:n]), atol=1e-6)
+    assert float(tbuf.poses[n - 1, 0]) == pytest.approx(0.7)  # the slot above moved down
+    _check_corr_state(jg, tg)
+
+
 # ------------------------------------------------------- the slice, oracle
 
 
@@ -322,6 +429,7 @@ def make_torch_oracle(buffer_ref, poses_w2c_gt, disps_gt, intr_full):
         weight = gt_valid[..., None].float().expand_as(delta)
         return net, delta, weight, torch.full((num_frames, ht, wd), 0.01)
 
+    update_fn.host_only = True  # reads host state: the sequential frontend, as in JAX
     return update_fn
 
 
@@ -462,6 +570,153 @@ class TestSystemOracleParityCorrOptions:
                 assert all(p.dim() == 5 and p.dtype == torch.bfloat16 for p in g.corr_pyr)
 
 
+class MaskedNoDepthStream(SyntheticStream):
+    """The oracle stream with a validity mask per frame (an invalid band
+    along the top and a moving invalid block) and no metric depth, so the
+    keyframe depth prior supplies the disparity prior."""
+
+    def attributes(self):
+        return super().attributes() | {JFrameAttribute.MASK}
+
+    def __iter__(self):
+        for k, f in enumerate(super().__iter__()):
+            mask = np.ones((H, W), bool)
+            mask[:9] = False
+            mask[20:31, 4 * k: 4 * k + 13] = False
+            yield type(f)(raw_frame_idx=f.raw_frame_idx, rgb=f.rgb, mask=mask,
+                          intrinsics=f.intrinsics)
+
+
+@pytest.fixture(scope="module")
+def oracle_runs_options():
+    """Masks, ``keyframe_depth: constant-2.0`` and ``keyframe_stride: 1``
+    with a motion filter that passes no frame, so the stride alone makes
+    every frame a keyframe (the keyframe set, and so every shape, of
+    ``oracle_runs``: the JAX compiles are shared), in one oracle-scene run
+    of each package; the port's buffer is kept."""
+    import vipe_tpu.slam.system as jsystem
+    from vipe_tpu.priors.depth.factory import make_depth_model as jmake
+    from vipe_tpu_torch.priors.depth.factory import make_depth_model as tmake
+
+    rng = np.random.default_rng(3)
+    poses_w2c, disps, intr_full = make_gt(rng)
+    stream = MaskedNoDepthStream(rng, disps, intr_full, with_depth=False)
+    cfg = dict(SYSTEM_CFG, filter_thresh=float("inf"), keyframe_stride=1)
+
+    ref_j = [None]
+    oracle_j = make_oracle(ref_j, poses_w2c, disps, intr_full)
+
+    def ef_j(params, images):
+        return jnp.zeros((images.shape[0], HT, WD, 128), jnp.float32)
+
+    out_j = _run_with_spy(jsystem, ref_j, lambda: jsystem.SLAMSystem(
+        config=dict(cfg, keyframe_spec_depth=1, proximity_spec=False), update_fn=oracle_j,
+        params=None, encode_features=ef_j, encode_context=lambda p, im: (ef_j(p, im),) * 2,
+        metric_depth=jmake("constant-2.0"),
+    ).run(stream))
+
+    ref_t = [None]
+    oracle_t = make_torch_oracle(ref_t, poses_w2c, disps, intr_full)
+
+    def ef_t(images):
+        return torch.zeros((images.shape[0], HT, WD, 128), dtype=torch.bfloat16)
+
+    out_t = _run_with_spy(tsystem, ref_t, lambda: tsystem.SLAMSystem(
+        config=cfg, device="cpu", update_fn=oracle_t, encode_features=ef_t,
+        encode_context=lambda im: (ef_t(im), ef_t(im)), metric_depth=tmake("constant-2.0"),
+    ).run(stream))
+    return out_j, out_t, np.asarray(jlie.se3_inv(poses_w2c)), ref_t[0]
+
+
+class TestSystemOracleParityOptions:
+    """``TestSystemOracleParity`` at its limits, with masks, the constant
+    keyframe depth prior and a keyframe stride on both sides."""
+
+    def test_keyframes_are_the_stride(self, oracle_runs_options):
+        out_j, out_t, _, _ = oracle_runs_options
+        np.testing.assert_array_equal(out_t.keyframes, out_j.slam_map.frame_inds)
+        np.testing.assert_array_equal(out_t.keyframes, np.arange(T))
+
+    def test_trajectory_close(self, oracle_runs_options):
+        out_j, out_t, gt, _ = oracle_runs_options
+        assert out_t.trajectory.shape == (T, 7)
+        np.testing.assert_allclose(out_t.trajectory, out_j.trajectory, rtol=0, atol=1e-4)
+        assert np.abs(out_t.trajectory[:, :3] - gt[:, :3]).max() < 2e-2
+
+    def test_map_and_intrinsics_close(self, oracle_runs_options):
+        out_j, out_t, _, _ = oracle_runs_options
+        np.testing.assert_allclose(out_t.intrinsics, out_j.intrinsics, rtol=1e-5)
+        np.testing.assert_array_equal(out_t.slam_map.mask, out_j.slam_map.mask)
+        np.testing.assert_allclose(out_t.slam_map.xyz, out_j.slam_map.xyz, rtol=0, atol=1e-4)
+
+    def test_masks_and_prior_reach_the_buffer(self, oracle_runs_options):
+        """The invalid band is masked on every keyframe, the depth prior
+        gives disparity 1/2 everywhere, and masked points leave the map."""
+        _, out_t, _, buf = oracle_runs_options
+        n = len(out_t.keyframes)
+        assert bool(buf.masks[:n, 0].all()) and not bool(buf.masks[:n, 3:].all())
+        torch.testing.assert_close(buf.disps_sens[:n], torch.full_like(buf.disps_sens[:n], 0.5))
+        assert not out_t.slam_map.mask[:, 0].any()
+
+
+def test_mask_grid_matches_cv2():
+    """``mask_grid`` against the JAX system's ``cv2.resize(INTER_LINEAR)``
+    formula on masks with edges at every offset of the 8-pixel cells, and
+    at 2 sizes.  Exactly equal; no cell's valid fraction lies within 1e-3
+    of the 0.9 threshold, so neither side's rounding could flip one."""
+    import cv2
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(11)
+    for h, w in ((48, 64), (96, 136)):
+        ht, wd = h // 8, w // 8
+        mask = np.ones((h, w), bool)
+        mask[: h // 5] = False
+        mask[rng.integers(0, h, 40), rng.integers(0, w, 40)] = False
+        mask[10:10 + rng.integers(1, 20), 3:50] = False
+        ref = ~(cv2.resize(mask.astype(np.float32), (wd, ht), interpolation=cv2.INTER_LINEAR) > 0.9)
+        got = tsystem.mask_grid(mask, ht, wd)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert 0 < ref.sum() < ref.size
+        frac = F.interpolate(torch.from_numpy(mask.astype(np.float32))[None, None], size=(ht, wd),
+                             mode="bilinear", align_corners=False)[0, 0]
+        assert float((frac - 0.9).abs().min()) > 1e-3
+
+
+def test_update_disps_sens_matches_jax():
+    """The keyframe depth prior per slot, then after the focal changed: a
+    metric prior is rescaled by the focal ratio (no re-run), as the JAX
+    buffer does; unchanged intrinsics leave it untouched."""
+    from vipe_tpu.priors.depth.base import ConstantDepthModel as JConst
+    from vipe_tpu.slam.buffer import GraphBuffer as JBuffer
+    from vipe_tpu_torch.priors.depth.base import ConstantDepthModel as TConst
+    from vipe_tpu_torch.slam.buffer import GraphBuffer as TBuffer
+
+    rng = np.random.default_rng(2)
+    jb, tb = JBuffer(height=H, width=W, buffer_size=8), TBuffer(height=H, width=W, buffer_size=8)
+    intr = np.asarray([W, W, W / 2, H / 2], np.float32)
+    jm, tm = JConst(1.7), TConst(1.7)
+    for k in range(3):
+        img = (rng.random((H, W, 3)) * 255).astype(np.uint8)
+        feat = np.zeros((HT, WD, 128), np.float32)
+        # copies: a CPU jax array may share the numpy buffer it came from
+        jb.append_keyframe(k, jnp.asarray(img), feat, None, None, intrinsics=intr.copy())
+        tb.append_keyframe(k, torch.from_numpy(img), torch.from_numpy(feat), None, None,
+                           intrinsics=intr.copy())
+        jb.update_disps_sens(jm, frame_idx=k)
+        tb.update_disps_sens(tm, frame_idx=k)
+    np.testing.assert_allclose(tb.disps_sens[:3].numpy(), np.asarray(jb.disps_sens[:3]), rtol=1e-6)
+    for step in ("same", "focal"):
+        if step == "focal":
+            jb.intrinsics = jb.intrinsics.at[:2].multiply(1.25)
+            tb.intrinsics[:2] *= 1.25
+        jb.update_disps_sens(jm)
+        tb.update_disps_sens(tm)
+        np.testing.assert_allclose(tb.disps_sens[:4].numpy(), np.asarray(jb.disps_sens[:4]),
+                                   rtol=1e-6, err_msg=step)
+    assert float(tb.disps_sens[0, 0, 0]) == pytest.approx(1 / 1.7 / 1.25)
+
+
 # ------------------------------------------------- random-weight DroidNet
 
 
@@ -492,7 +747,7 @@ def test_random_weight_droidnet_alt_run_is_finite():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("keyframe_spec_depth", 2), ("proximity_spec", True), ("keyframe_depth", "constant-2.0"),
+    ("visualize", True), ("infill_dense_disp", True), ("sparse_tracks", {"enabled": True}),
 ])
 def test_unported_options_raise(key, value):
     with pytest.raises(NotImplementedError):

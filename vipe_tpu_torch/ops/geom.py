@@ -46,13 +46,16 @@ def iproj_i_proj_j_disp(Gij, disps_i, intrinsics_i, intrinsics_j,
     """Pixels of frame i → coords in frame j over the full grid.
 
     ``Gij`` (E, 7); ``disps_i`` (E, H, W); intrinsics (E, D).
-    Returns coords (E, H, W, 2) and valid (E, H, W) (target depth above
-    ``MIN_DEPTH``)."""
+    Returns coords (E, H, W, 2) and valid (E, H, W): target depth above
+    ``MIN_DEPTH``, or for the panorama, which sees every direction, target
+    range above it (``|xyz| > MIN_DEPTH·d`` in homogeneous form)."""
     u, v = pixel_grid(disps_i.shape[-2], disps_i.shape[-1], disps_i.dtype,
                       disps_i.device)
     pts_i = cam.iproj_disp(camera_type, intrinsics_i, u, v, disps_i)
     pts_j = act_homog(Gij[:, None, None, :], pts_i)
     coords = cam.proj_points(camera_type, intrinsics_j, pts_j)
+    if camera_type == cam.CameraType.PANORAMA:
+        return coords, torch.linalg.norm(pts_j[..., :3], dim=-1) > MIN_DEPTH * pts_j[..., 3]
     return coords, pts_j[..., 2] > MIN_DEPTH
 
 
@@ -80,7 +83,8 @@ def frame_distance(poses, disps, intrinsics, ii, jj, di=None,
     Weighted sum of the full-SE3 flow (``beta``) and the translation-only
     flow (``1 − beta``) over pixels whose transformed depth exceeds
     ``MIN_DEPTH``; saturates at 1000 when fewer than 75 % are valid.
-    ``intrinsics``: (4,) or (N, 4) pinhole-equivalent, at grid scale."""
+    ``intrinsics``: (4,) or (N, 4) pinhole-equivalent, at grid scale (a
+    distorted or panoramic camera goes in as its ``pinhole_equivalent``)."""
     intr = (intrinsics[:4].expand(poses.shape[0], 4)
             if intrinsics.dim() == 1 else intrinsics[..., :4])
     if di is None:

@@ -1,9 +1,11 @@
 """DefaultAnnotationPipeline (port of ``vipe_tpu/pipeline/default.py``,
-single view, no priors): intrinsics processor → SLAMSystem → artifacts.
+single view): intrinsics processor → SLAMSystem → artifacts.
 
-The priors (GeoCalib, keyframe depth, depth alignment, TrackAnything
-instances) are not ported yet; asking for one raises
-``NotImplementedError``.
+``init.intrinsics`` is ``fov`` or ``gt`` (the stream's own); the keyframe
+depth prior of ``slam.keyframe_depth`` is built by the depth factory, which
+holds the ``constant-<depth>`` prior so far.  The learned priors (GeoCalib,
+depth alignment, TrackAnything instances) are not ported yet; asking for
+one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,6 +49,14 @@ class DefaultAnnotationPipeline(Pipeline):
             return False
         return io_utils.ArtifactPath(root, stream_name).exists()
 
+    def _make_metric_depth(self):
+        kd = self.slam_cfg.get("keyframe_depth")
+        if not kd:
+            return None
+        from ..priors.depth.factory import make_depth_model
+
+        return make_depth_model(kd)
+
     def run(self, video_stream) -> AnnotationPipelineOutput:
         if isinstance(video_stream, (list, tuple)):
             raise NotImplementedError("multiview rigs are not ported yet")
@@ -56,7 +66,8 @@ class DefaultAnnotationPipeline(Pipeline):
             procs.append(HeuristicIntrinsicsProcessor(self.init_cfg.get("fov_deg", 60.0)))
         stream = ProcessedVideoStream(video_stream, procs).cache(online=True, compress_rgb=True)
 
-        slam = SLAMSystem(config=self.slam_cfg, device=self.device)
+        slam = SLAMSystem(config=self.slam_cfg, device=self.device,
+                          metric_depth=self._make_metric_depth())
         with profiling.stage("slam"):
             slam_out = slam.run(stream, camera_type=camera_type)
         del slam

@@ -15,7 +15,9 @@ Damping, weighting and retraction follow the JAX package (and the
 reference's ``buffer.bundle_adjustment``): pose ``H += damping·diag + ep·I``;
 disparity ``C += damping + disp_ep`` (+ ``alpha`` where a sensor prior
 exists); intrinsics ``1e-6·diag + 1e-6·I``; retraction ``pose ← exp(dx)·pose``,
-``disp += dx`` (steps > 10 rejected), shared focal ``+= df``.
+``disp += dx`` (steps > 10 rejected), shared focal ``+= df``, MEI's
+distortion ``k1 += 0.01·dk``.  The camera model enters only through
+``cameras.iproj_disp``/``proj_points``, which ``jacfwd`` differentiates.
 """
 
 from __future__ import annotations
@@ -72,17 +74,17 @@ def build_edge_slots(ii, n_frames: int, max_edges_per_frame: int) -> np.ndarray:
 
 
 def _expand_intr_delta(cfg: BAConfig, intr, df):
-    """Apply the intrinsics tangent (shared focal) to a full-res vector."""
+    """Apply the intrinsics tangent ``[d focal, d distortion...]`` to a
+    full-res vector."""
     if cfg.kf == 0:
         return intr
-    return torch.cat([intr[:2] + df[0], intr[2:]])
+    return torch.cat([intr[:2] + df[0], intr[2:4], intr[4:] + df[1:]])
 
 
 def edge_residuals_and_jacobians(cfg: BAConfig, poses, disps, intrinsics,
                                  target, ii, jj):
     """Per-edge residuals r (E, P, 2), valid (E, P) and Jacobians Ji, Jj
     (E, P, 2, 6), Jz (E, P, 2), Jf (E, P, 2, kf) or None."""
-    cam.require_pinhole(cfg.camera_type)
     P = cfg.ht * cfg.wd
     dev = poses.device
     v, u = torch.meshgrid(
@@ -95,7 +97,7 @@ def edge_residuals_and_jacobians(cfg: BAConfig, poses, disps, intrinsics,
     kf = cfg.kf
     ndof = 13 + kf
 
-    def coords_of(pose_i, pose_j, disp_i, intr):
+    def coords_of(pose_i, pose_j, disp_i, intr, u, v):
         """Edges (E, 7), (E, 7), (E, P) → coords (E, P, 2), valid (E, P)."""
         intr_s = cam.scaled_intrinsics(cfg.camera_type, intr, 1.0 / cfg.intrinsics_factor)
         Gij = lie.se3_mul(pose_j, lie.se3_inv(pose_i))[:, None, :]
@@ -113,16 +115,28 @@ def edge_residuals_and_jacobians(cfg: BAConfig, poses, disps, intrinsics,
         # one tangent shared by every edge: edge e's coords depend only on
         # its own poses and disparities, so d coords[e] / d dx is edge e's
         # Jacobian (the ones-tangent trick, over edges as over pixels)
-        p_i = lie.se3_retr(pose_i, dx[0:6])
-        p_j = lie.se3_retr(pose_j, dx[6:12])
-        intr = _expand_intr_delta(cfg, intrinsics, dx[13:13 + kf])
-        return coords_of(p_i, p_j, disp_i + dx[12], intr)[0]
+        # operations that mix a dual tensor with a plain tensor or a python
+        # number take a slow path under forward-mode AD; a dual zero added
+        # to the plain inputs keeps the whole chain dual
+        z = dx[0] - dx[0]
+        p_i = _retr_linear(pose_i + z, dx[0:6])
+        p_j = _retr_linear(pose_j + z, dx[6:12])
+        intr = _expand_intr_delta(cfg, intrinsics + z, dx[13:13 + kf])
+        return coords_of(p_i, p_j, disp_i + dx[12], intr, u + z, v + z)[0]
 
-    coords0, valid = coords_of(pose_i, pose_j, disp_i, intrinsics)
+    coords0, valid = coords_of(pose_i, pose_j, disp_i, intrinsics, u, v)
     J = jacfwd(f)(torch.zeros(ndof, dtype=torch.float32, device=dev))  # (E, P, 2, ndof)
     r = coords0 - target
     Jf = J[..., 13:] if kf else None
     return r, valid, J[..., 0:6], J[..., 6:12], J[..., 12], Jf
+
+
+def _retr_linear(X, xi):
+    """``exp(xi)·X`` to first order in ``xi``: the same value and the same
+    first derivative at ``xi = 0``, which is all ``jacfwd`` at 0 reads."""
+    half = torch.ops.aten.mul.Scalar(xi[3:6], 0.5)
+    q = torch.cat([half, torch.ones_like(half[:1])])
+    return lie.se3_mul(torch.cat([xi[0:3], q]), X)
 
 
 def _seg(x, idx, n):
@@ -295,7 +309,9 @@ def ba_iteration(cfg: BAConfig, poses, disps, intrinsics, target, weight,
     disps_new = disps + torch.where(disp_mask[:, None], dx_disp, torch.zeros_like(dx_disp))
     intr_new = intrinsics
     if kf:
-        intr_new = torch.cat([intrinsics[:2] + dx_f[0], intrinsics[2:]])
+        # shared focal; distortion steps at a 0.01 learning rate
+        intr_new = torch.cat([intrinsics[:2] + dx_f[0], intrinsics[2:4],
+                              intrinsics[4:] + 0.01 * dx_f[1:]])
     return poses_new, disps_new, intr_new
 
 

@@ -9,14 +9,18 @@ from .factor_graph import FactorGraph
 
 
 class SLAMBackend:
-    def __init__(self, buffer, update_fn, config):
+    def __init__(self, buffer, update_fn, config, depth_model=None):
         self.buffer = buffer
         self.update_fn = update_fn
         self.config = config
+        self.depth_model = depth_model
         self.last_residual = 0.0
 
-    def run(self, steps: int = 12):
-        """Fresh graph over all keyframes + ``steps`` × update_batch."""
+    def run(self, steps: int = 12, update_depth: bool = True):
+        """Fresh graph over all keyframes + ``steps`` × update_batch.  With a
+        keyframe depth prior, ``update_depth`` and intrinsics optimised, the
+        prior runs again between the two halves, on the refined
+        intrinsics, and the second half keeps the intrinsics fixed."""
         c = self.config
         buf = self.buffer
         t = buf.n_frames
@@ -33,8 +37,14 @@ class SLAMBackend:
         optimize_intrinsics = c.get("optimize_intrinsics", False)
         itrs = 16 if optimize_intrinsics else 8
         if graph.n_edges > 0:
-            graph.update_batch(itrs=itrs, steps=steps,
-                               optimize_intrinsics=optimize_intrinsics)
+            if self.depth_model is not None and update_depth and optimize_intrinsics:
+                pre = steps // 2
+                graph.update_batch(itrs=itrs, steps=pre, optimize_intrinsics=True)
+                buf.update_disps_sens(self.depth_model, frame_idx=None)
+                graph.update_batch(itrs=itrs, steps=steps - pre, optimize_intrinsics=False)
+            else:
+                graph.update_batch(itrs=itrs, steps=steps,
+                                   optimize_intrinsics=optimize_intrinsics)
             self.last_residual = graph.current_residual()
         else:
             # single keyframe: adopt the sensor depth where there is one
@@ -42,4 +52,4 @@ class SLAMBackend:
 
     def run_if_necessary(self, steps: int = 12):
         if self.config.get("optimize_intrinsics", False):
-            self.run(steps=steps)
+            self.run(steps=steps, update_depth=True)

@@ -12,6 +12,14 @@ import torch
 
 from ..ops import cameras as cam
 from ..ops import geom, lie
+from ..utils import profiling
+
+
+def _depth_to_sens(depth):
+    """Full-res metric depth → the 1/8-grid disparity prior (samples at
+    [3::8, 3::8]; no depth stays 0)."""
+    d = depth[..., 3::8, 3::8].float()
+    return torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-8), d)
 
 
 class GraphBuffer:
@@ -21,7 +29,6 @@ class GraphBuffer:
                  dense_disp_alpha: float = 0.001, feat_dtype=torch.bfloat16,
                  device="cpu"):
         assert height % 8 == 0 and width % 8 == 0
-        cam.require_pinhole(camera_type)
         self.height, self.width = height, width
         self.ht, self.wd = height // 8, width // 8
         self.camera_type = camera_type
@@ -35,13 +42,20 @@ class GraphBuffer:
         B, ht, wd, dev = buffer_size, self.ht, self.wd, self.device
         self.images = torch.zeros((B, height, width, 3), dtype=torch.uint8, device=dev)
         self.poses = lie.se3_identity((B,), device=dev)
-        self.intrinsics = torch.zeros((camera_type.intrinsics_dim(),), device=dev)
+        if camera_type == cam.CameraType.PANORAMA:
+            # the equirect camera follows from the frame size; the stream's
+            # all-zero panorama intrinsics are ignored
+            self.intrinsics = cam.panorama_intrinsics(height, width, device=dev)
+        else:
+            self.intrinsics = torch.zeros((camera_type.intrinsics_dim(),), device=dev)
         self.disps = torch.full((B, ht, wd), init_disp, device=dev)
         self.disps_sens = torch.zeros((B, ht, wd), device=dev)
         self.masks = torch.zeros((B, ht, wd), dtype=torch.bool, device=dev)  # True = invalid
         self.fmaps = torch.zeros((B, ht, wd, 128), dtype=feat_dtype, device=dev)
         self.nets = torch.zeros((B, ht, wd, 128), dtype=feat_dtype, device=dev)
         self.inps = torch.zeros((B, ht, wd, 128), dtype=feat_dtype, device=dev)
+        # intrinsics the keyframe depth prior last ran with
+        self.last_depth_intrinsics = None
 
     # ------------------------------------------------------------------ state
 
@@ -55,10 +69,12 @@ class GraphBuffer:
         return cam.pinhole_equivalent(self.camera_type, self.intrinsics) / 8.0
 
     def append_keyframe(self, frame_idx: int, image, fmap, net, inp, mask=None,
-                        metric_depth=None, intrinsics=None):
+                        metric_depth=None, intrinsics=None, pose=None):
         """Fill the next slot.  ``image`` (H, W, 3) uint8 or float in [0, 1];
-        ``metric_depth`` full-res, sampled at [3::8, 3::8] into the disparity
-        prior; ``net``/``inp`` may be None when the row is never read."""
+        ``mask`` (ht, wd) bool, True = invalid; ``metric_depth`` full-res,
+        sampled at [3::8, 3::8] into the disparity prior; ``pose`` a given
+        world-to-camera pose; ``net``/``inp`` may be None when the row is
+        never read."""
         k = self.n_frames
         assert k < self.buffer_size, "keyframe buffer exhausted"
         self.tstamp[k] = frame_idx
@@ -74,13 +90,16 @@ class GraphBuffer:
         if mask is not None:
             self.masks[k] = mask
         if metric_depth is not None:
-            d = torch.as_tensor(np.asarray(metric_depth), dtype=torch.float32,
-                                device=self.device)[3::8, 3::8]
-            self.disps_sens[k] = torch.where(d > 0, 1.0 / torch.clamp(d, min=1e-8), d)
-        if intrinsics is not None and k == 0:
-            self.intrinsics = torch.as_tensor(
+            self.disps_sens[k] = _depth_to_sens(torch.as_tensor(
+                np.asarray(metric_depth), dtype=torch.float32, device=self.device))
+        if intrinsics is not None and k == 0 and self.camera_type != cam.CameraType.PANORAMA:
+            # a copy: the caller's array must not alias the refined intrinsics
+            self.intrinsics = torch.tensor(
                 np.asarray(intrinsics), dtype=torch.float32, device=self.device
             ).reshape(self.intrinsics.shape)
+        if pose is not None:
+            self.poses[k] = torch.as_tensor(np.asarray(pose), dtype=torch.float32,
+                                            device=self.device)
         self.n_frames += 1
 
     def append_keyframe_copy(self, src_frame: int, frame_idx: int):
@@ -94,9 +113,16 @@ class GraphBuffer:
             arr[k] = arr[src_frame]
         self.n_frames += 1
 
-    def remove_slot(self, ix: int):
-        """Remove keyframe row ``ix``, shifting rows (ix, n_frames) down."""
-        top = self.n_frames - 1
+    def remove_slot(self, ix: int, top: int = None):
+        """Remove keyframe row ``ix``, shifting rows (ix, top] down by one.
+
+        ``top`` defaults to ``n_frames - 1``.  The speculative frontend
+        removes a keyframe after a younger one was appended and passes the
+        initialised next slot above ``n_frames`` as ``top``, so that slot
+        shifts down too.  (The JAX package shifts a power of two of rows;
+        the rows it moves beyond ``top`` are written before they are
+        read.)"""
+        top = self.n_frames - 1 if top is None else top
         assert top > ix
         for name in ("poses", "images", "disps", "disps_sens", "masks",
                      "fmaps", "nets", "inps"):
@@ -123,6 +149,34 @@ class GraphBuffer:
 
     def _idx(self, a):
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=self.device)
+
+    def update_disps_sens(self, depth_model, frame_idx=None):
+        """Run the keyframe depth prior: on slot ``frame_idx``, or, after the
+        intrinsics changed, on every keyframe.  A metric-depth prior is
+        rescaled by the focal ratio instead of run again."""
+        if depth_model is None:
+            return
+        from ..priors.depth.base import DepthType
+
+        if frame_idx is None:
+            last = self.last_depth_intrinsics
+            if last is not None and bool(torch.allclose(last, self.intrinsics)):
+                return
+            if depth_model.depth_type == DepthType.METRIC_DEPTH and last is not None:
+                ratio = float(last[0]) / float(self.intrinsics[0])
+                self.disps_sens[: self.n_frames] *= ratio
+                self.last_depth_intrinsics = self.intrinsics.clone()
+                return
+            frames = range(self.n_frames)
+        else:
+            frames = [frame_idx]
+        focal = float(self.intrinsics[0])
+        for k in frames:
+            with profiling.stage("keyframe_depth"):
+                depth = depth_model.estimate_depth(self.images[k].float() / 255.0,
+                                                   focal_length=focal)
+                self.disps_sens[k] = _depth_to_sens(torch.as_tensor(depth, device=self.device))
+        self.last_depth_intrinsics = self.intrinsics.clone()
 
     # ---------------------------------------------------------------- mapping
 

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops import corr as corr_ops
-from ..ops import geom
+from ..ops import geom, lie
 from . import ba
 
 CORR_LEVELS = 4
@@ -85,6 +85,7 @@ class FactorGraph:
         self.jj_inac = np.zeros(0, np.int64)
         self.target_inac = torch.zeros((0, ht, wd, 2), device=dev)
         self.weight_inac = torch.zeros((0, ht, wd, 2), device=dev)
+        self.host_waits = 0  # distance-matrix reads that waited for their copy
 
     @property
     def n_edges(self) -> int:
@@ -187,9 +188,11 @@ class FactorGraph:
             if self.corr_q:
                 self.corr_scale = [s[keep_t] for s in self.corr_scale]
 
-    def rm_keyframe(self, ix: int):
-        """Remove keyframe ``ix`` from buffer and graph, shifting indices."""
-        self.buffer.remove_slot(ix)
+    def rm_keyframe(self, ix: int, top: Optional[int] = None):
+        """Remove keyframe ``ix`` from buffer and graph, shifting indices.
+        ``top``: see ``GraphBuffer.remove_slot`` (a late removal shifts the
+        initialised next slot too)."""
+        self.buffer.remove_slot(ix, top)
         m = (self.ii_inac == ix) | (self.jj_inac == ix)
         self.ii_inac[self.ii_inac >= ix] -= 1
         self.jj_inac[self.jj_inac >= ix] -= 1
@@ -212,31 +215,52 @@ class FactorGraph:
         keep = (np.abs(ii - jj) > 0) & (np.abs(ii - jj) <= r)
         self.add_factors(ii[keep], jj[keep])
 
-    def distance_matrix(self, w0: int, n: int, beta: float):
-        """Bidirectional frame distances among frames [w0, n) as float64:
-        0.5·(d(i→j, disp_i) + d(j→i, disp_j)), each direction saturating
-        independently."""
-        k = n - w0
-        ii, jj = np.meshgrid(np.arange(w0, n), np.arange(w0, n), indexing="ij")
+    def submit_distance_matrix(self, beta: float, n_frames: Optional[int] = None,
+                               window: Optional[int] = None,
+                               predict_slot: Optional[int] = None) -> "DistanceToken":
+        """Start the bidirectional distance matrix among the last ``window``
+        of the first ``n_frames`` frames on its way to the host; read it
+        with ``add_proximity_factors(dist_token=...)``.  Entry (i, j) is
+        0.5·(d(i→j, disp_i) + d(j→i, disp_j)), each direction saturating on
+        its own.  ``predict_slot``: a frame whose row is taken as the next
+        slot's initialisation (constant-velocity pose from the two frames
+        below it, their upper one's mean disparity) instead of the
+        buffer's row: the frontend submits before its step, from the state
+        before the step."""
         buf = self.buffer
-        d = geom.frame_distance(
-            buf.poses, buf.disps, buf.pinhole_grid_intrinsics,
-            self._t(ii.reshape(-1)), self._t(jj.reshape(-1)),
-            di=self._t(ii.reshape(-1)), beta=beta,
-        ).reshape(k, k)
-        return (0.5 * (d + d.T)).cpu().numpy().astype(np.float64)
+        n = buf.n_frames if n_frames is None else n_frames
+        w0 = max(0, n - window) if window is not None else 0
+        poses, disps = buf.poses[w0:n], buf.disps[w0:n]
+        if predict_slot is not None and 2 <= predict_slot - w0 < n - w0:
+            s = predict_slot - w0
+            poses, disps = poses.clone(), disps.clone()
+            p1, p2 = poses[s - 2], poses[s - 1]
+            w = lie.se3_log(lie.se3_mul(p2, lie.se3_inv(p1))) * 0.5
+            poses[s] = lie.se3_mul(lie.se3_exp(w), p2)
+            disps[s] = disps[s - 1].mean()
+        k = n - w0
+        ii, jj = np.meshgrid(np.arange(k), np.arange(k), indexing="ij")
+        ii_t, jj_t = self._t(ii.reshape(-1)), self._t(jj.reshape(-1))
+        d = geom.frame_distance(poses, disps, buf.pinhole_grid_intrinsics, ii_t, jj_t,
+                                di=ii_t, beta=beta).reshape(k, k)
+        return DistanceToken(w0, 0.5 * (d + d.T), self)
 
     def add_proximity_factors(self, t0: int = 0, t1: int = 0, rad: int = 2,
                               nms: int = 2, beta: float = 0.25,
-                              thresh: float = 16.0, remove: bool = False):
+                              thresh: float = 16.0, remove: bool = False,
+                              dist_token: Optional["DistanceToken"] = None):
         """Distance-thresholded NMS edge proposal: neighbourhood edges
         (i-rad-1..i-1 ↔ i) always; other pairs by ascending distance with
-        an L1-ball suppression around accepted and existing edges."""
+        an L1-ball suppression around accepted and existing edges.  The
+        distances come from ``dist_token`` where it covers the frames
+        [min(t0, t1), n_frames), else from a matrix computed now."""
         t = self.buffer.n_frames
         if t - max(t0, t1) <= 0:
             return
-        w0 = min(t0, t1)
-        d_full = self.distance_matrix(w0, t, beta)
+        if dist_token is None or not dist_token.covers(min(t0, t1), t):
+            dist_token = self.submit_distance_matrix(beta, window=t - min(t0, t1))
+        w0 = dist_token.w0
+        d_full = dist_token.read()
         ix = np.arange(t0, t)
         jx = np.arange(t1, t)
         ii, jj = np.meshgrid(ix, jx, indexing="ij")
@@ -298,9 +322,11 @@ class FactorGraph:
 
     def update(self, t0: Optional[int] = None, t1: Optional[int] = None,
                itrs: int = 3, use_inactive: bool = False,
-               motion_only: bool = False, limited_disp: bool = False):
+               motion_only: bool = False, fixed_motion: bool = False,
+               limited_disp: bool = False):
         """Frontend-style update: reproject → corr lookup → ConvGRU → dense
-        BA with the GRU-predicted damping."""
+        BA with the GRU-predicted damping.  ``fixed_motion``: the poses are
+        given and stay fixed; ``motion_only``: the disparities do."""
         assert self.incremental and self.n_edges > 0
         if t0 is None:
             t0 = int(max(1, self.ii.min() + 1))
@@ -316,7 +342,7 @@ class FactorGraph:
         self.damping[src] = eta[src]
         self._bundle_adjustment(
             t0, t1, itrs, use_inactive=use_inactive, motion_only=motion_only,
-            limited_disp=limited_disp,
+            fixed_motion=fixed_motion, limited_disp=limited_disp,
             pose_damping=1e-3, pose_ep=0.1,
             optimize_intrinsics=self.optimize_intrinsics and not motion_only,
         )
@@ -376,14 +402,15 @@ class FactorGraph:
                 src = self._t(np.unique(ii))
                 self.damping[src] = eta[src]
             self._bundle_adjustment(
-                1, t, itrs, use_inactive=False, motion_only=False, limited_disp=False,
+                1, t, itrs, use_inactive=False, motion_only=False, fixed_motion=False,
+                limited_disp=False,
                 pose_damping=1e-5, pose_ep=1e-2,
                 optimize_intrinsics=optimize_intrinsics,
             )
 
     def _bundle_adjustment(self, t0: int, t1: int, itrs: int, use_inactive: bool,
-                           motion_only: bool, limited_disp: bool, pose_damping: float,
-                           pose_ep: float, optimize_intrinsics: bool):
+                           motion_only: bool, fixed_motion: bool, limited_disp: bool,
+                           pose_damping: float, pose_ep: float, optimize_intrinsics: bool):
         """Dense BA over [selected inactive ++ active] edges and all
         ``n_frames`` keyframes (reference buffer.bundle_adjustment)."""
         buf = self.buffer
@@ -404,7 +431,7 @@ class FactorGraph:
         fill_ct = np.bincount(ii, minlength=N)
         slot_edge = ba.build_edge_slots(ii, N, max(int(fill_ct.max()), 1))
         idx = np.arange(N)
-        pose_mask = (idx >= t0) & (idx < t1)
+        pose_mask = (idx >= t0) & (idx < t1) & (not fixed_motion)
         has_edge = fill_ct > 0
         if motion_only:
             disp_mask = np.zeros(N, bool)
@@ -434,3 +461,31 @@ class FactorGraph:
         buf.disps[:N] = disps.reshape(N, self.ht, self.wd)
         if optimize_intrinsics:
             buf.intrinsics = intr
+
+
+class DistanceToken:
+    """A frame-distance matrix over frames [w0, w0 + n) on its way to the
+    host.  On the card it is copied into pinned host memory behind a CUDA
+    event, so that the copy overlaps later work; ``read`` waits only when
+    the copy has not landed yet, and counts such waits in the graph's
+    ``host_waits``."""
+
+    def __init__(self, w0: int, d: torch.Tensor, graph: FactorGraph):
+        self.w0, self.n, self.graph = w0, d.shape[0], graph
+        self.event = None
+        if d.is_cuda:
+            self.host = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+            self.host.copy_(d, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = d
+
+    def covers(self, w: int, t: int) -> bool:
+        return self.w0 <= w and self.w0 + self.n >= t
+
+    def read(self) -> np.ndarray:
+        if self.event is not None and not self.event.query():
+            self.graph.host_waits += 1
+            self.event.synchronize()
+        return self.host.numpy().astype(np.float64)

@@ -1,5 +1,5 @@
 """SLAMSystem: the two-pass driver (port of ``vipe_tpu/slam/system.py``,
-single view, sequential).
+single view).
 
 Pass 1: motion filter on every frame → keyframe buffer → frontend tracking
 with backend runs at the ``frontend_backend_iters`` milestones.  Then the
@@ -7,6 +7,11 @@ global backend, twice.  Pass 2: every frame again; non-keyframe poses are
 interpolated per ``infill_chunk_size`` chunk by the inner filler.  Returns
 the camera-to-world trajectory, the refined intrinsics and the filtered
 keyframe map.
+
+Besides the pinhole stream with no priors, a run takes MEI and panorama
+cameras, per-frame validity masks, streams that give poses (the frontend
+then keeps them fixed), a keyframe depth prior (``metric_depth``, built by
+the pipeline from ``slam.keyframe_depth``) and a fixed keyframe stride.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import cameras as cam
 from ..ops import lie
@@ -32,12 +38,8 @@ ENC_BATCH = 8  # pass-2 frames per feature-encoder call
 
 # config values this port does not implement yet (key → allowed value)
 _UNSUPPORTED = {
-    "keyframe_depth": None,
     "visualize": False,
     "sparse_tracks": None,
-    "keyframe_stride": None,
-    "keyframe_spec_depth": 1,
-    "proximity_spec": False,
     "infill_dense_disp": False,
 }
 
@@ -48,6 +50,17 @@ def check_supported(config: dict):
         val = config.get(key, ok)
         if val != ok and not (ok is None and not val):
             raise NotImplementedError(f"slam.{key}={val!r} is not ported yet")
+
+
+def mask_grid(mask: np.ndarray, ht: int, wd: int) -> torch.Tensor:
+    """Full-res validity mask (True = valid) → the (ht, wd) invalid mask of
+    the SLAM grid: bilinear downscale with half-pixel centres and no
+    antialiasing (what OpenCV's ``INTER_LINEAR`` computes), keep the cells
+    whose valid fraction is above 0.9, invert."""
+    m = torch.as_tensor(np.asarray(mask, np.float32))[None, None]
+    small = F.interpolate(m, size=(ht, wd), mode="bilinear", align_corners=False,
+                          antialias=False)[0, 0]
+    return ~(small > 0.9)
 
 
 class StandardResizeStreamProcessor(StreamProcessor):
@@ -99,13 +112,15 @@ def droidnet_fns(model):
 
 class SLAMSystem:
     """Single-video SLAM driver.  ``config`` is a plain dict (the
-    ``pipeline.slam`` section).  Without an injected ``update_fn`` it builds
-    DroidNet (bf16) on ``device``."""
+    ``pipeline.slam`` section); ``metric_depth`` an optional keyframe depth
+    prior.  Without an injected ``update_fn`` it builds DroidNet (bf16) on
+    ``device``."""
 
     def __init__(self, config: Optional[dict] = None, device=None,
                  update_fn: Optional[Callable] = None,
                  encode_features: Optional[Callable] = None,
-                 encode_context: Optional[Callable] = None):
+                 encode_context: Optional[Callable] = None,
+                 metric_depth=None):
         self.config = dict(config or {})
         check_supported(self.config)
         self.device = resolve_device(device)
@@ -117,22 +132,31 @@ class SLAMSystem:
         self.update_fn = update_fn
         self.encode_features = encode_features
         self.encode_context = encode_context
+        self.metric_depth = metric_depth
 
     def _upload(self, frame: VideoFrame) -> torch.Tensor:
-        if frame.mask is not None:
-            raise NotImplementedError("per-frame masks are not ported yet")
         rgb = (np.clip(frame.rgb, 0.0, 1.0) * 255).astype(np.uint8)
         return torch.from_numpy(rgb).to(self.device)
+
+    def _mask(self, frame: VideoFrame, buffer: GraphBuffer) -> Optional[torch.Tensor]:
+        if frame.mask is None:
+            return None
+        return mask_grid(frame.mask, buffer.ht, buffer.wd).to(self.device)
+
+    @staticmethod
+    def _base_pose(frame: VideoFrame) -> Optional[np.ndarray]:
+        """The world-to-camera pose of a frame that gives its pose."""
+        if frame.pose is None:
+            return None
+        return lie.se3_inv(torch.tensor(np.asarray(frame.pose), dtype=torch.float32)).numpy()
 
     @torch.no_grad()
     def run(self, video_stream, camera_type: cam.CameraType = cam.CameraType.PINHOLE
             ) -> SLAMOutput:
         c = self.config
-        cam.require_pinhole(camera_type)
         resizer = StandardResizeStreamProcessor(c.get("resize_area", 384 * 512))
         stream = ProcessedVideoStream(video_stream, [resizer])
-        if FrameAttribute.POSE in stream.attributes():
-            raise NotImplementedError("streams with initial poses are not ported yet")
+        c = {**c, "has_init_pose": FrameAttribute.POSE in stream.attributes()}
         h, w = stream.frame_size()
         total = len(stream)
 
@@ -145,37 +169,52 @@ class SLAMSystem:
         motion_filter = MotionFilter(self.encode_features, self.encode_context,
                                      self.update_fn, thresh=c.get("filter_thresh", 2.4))
         frontend = SLAMFrontend(buffer, self.update_fn, c)
-        backend = SLAMBackend(buffer, self.update_fn, c)
+        backend = SLAMBackend(buffer, self.update_fn, c, depth_model=self.metric_depth)
         filler = InnerFiller(buffer, self.update_fn, c)
         fbi = c.get("frontend_backend_iters", [16, 64, 256])
+        kf_stride = c.get("keyframe_stride")
 
         # ----------------------------------------------------------- pass 1
         with profiling.stage("slam_pass1"):
             for frame_idx, frame in enumerate(stream):
                 rgb = self._upload(frame)
-                token = motion_filter.submit(rgb)
+                mask = self._mask(frame, buffer)
+                token = motion_filter.submit(rgb, mask)
                 is_kf = motion_filter.resolve(token)
                 if is_kf:
                     fmap, net, inp = motion_filter.last_keyframe_features
-                elif frame_idx == total - 1:
-                    # the last frame is always a keyframe
+                elif frame_idx == total - 1 or (kf_stride and frame_idx % kf_stride == 0):
+                    # the last frame and every stride-th one are keyframes
                     is_kf = True
                     fmap = token.fmap[0]
                     net, inp = (x[0] for x in self.encode_context(rgb[None]))
                 if is_kf:
+                    # apply the removal decisions still pending, keeping the
+                    # newest one pending at depth 2
+                    frontend.resolve_pending(keep_newest=True)
                     buffer.append_keyframe(
-                        frame_idx, rgb, fmap, net, inp,
+                        frame_idx, rgb, fmap, net, inp, mask=mask,
                         metric_depth=frame.metric_depth, intrinsics=frame.intrinsics,
+                        pose=self._base_pose(frame),
                     )
+                    if self.metric_depth is not None and frame.metric_depth is None:
+                        buffer.update_disps_sens(self.metric_depth,
+                                                 frame_idx=buffer.n_frames - 1)
                 frontend.run()
-                if is_kf and buffer.n_frames in fbi:
-                    backend.run_if_necessary(5)
+                if is_kf and any(buffer.n_frames - k in fbi for k in range(3)):
+                    # pending removals may hold n_frames up to two high
+                    frontend.resolve_pending()
+                    if buffer.n_frames in fbi:
+                        backend.run_if_necessary(5)
+                        # the backend moved poses and disparities
+                        frontend.drop_cached_distance()
+            frontend.resolve_pending()
         keyframes = buffer.tstamp[: buffer.n_frames].copy()
 
         # -------------------------------------------------------- global BA
         with profiling.stage("slam_backend"):
             backend.run(7)
-            backend.run(c.get("backend_iters", 24))
+            backend.run(c.get("backend_iters", 24), update_depth=False)
 
         # ----------------------------------------------------------- pass 2
         with profiling.stage("slam_pass2"):
@@ -194,6 +233,7 @@ class SLAMSystem:
                         buffer.append_keyframe_copy(kf_slot[frame_idx], frame_idx)
                     else:
                         buffer.append_keyframe(frame_idx, rgb, fmaps[k], None, None,
+                                               mask=self._mask(frame, buffer),
                                                metric_depth=frame.metric_depth)
                         k += 1
                     if filler.check() or frame_idx == total - 1:
@@ -211,9 +251,17 @@ class SLAMSystem:
             raise ValueError("video exhausted early — possibly malformed")
 
         slam_map = buffer.extract_slam_map(c.get("map_filter_thresh", 0.05))
-        intr_full = resizer.recover_intrinsics(buffer.intrinsics.cpu().numpy())
+        if camera_type == cam.CameraType.PANORAMA:
+            # panorama artifacts carry all-zero intrinsics; the pixel-unit
+            # equirect scales are the SLAM grid's own parameterisation
+            intr_full = np.zeros(buffer.intrinsics.shape, np.float32)
+        else:
+            intr_full = resizer.recover_intrinsics(buffer.intrinsics.cpu().numpy())
         trajectory = lie.se3_inv(torch.as_tensor(filled.poses)).numpy()
         return SLAMOutput(
             trajectory=trajectory, intrinsics=intr_full, camera_type=camera_type,
             slam_map=slam_map, ba_residual=backend.last_residual, keyframes=keyframes,
+            frontend_stats={"n_removals": frontend.n_removals,
+                            "late_removals": frontend.late_removals,
+                            "host_waits": frontend.graph.host_waits},
         )
