@@ -22,7 +22,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. checks the SLAM machinery on the card against ground truth: tiny
    synthetic scenes whose update operator is a geometric oracle (GT flow,
    unit weights) must give back the GT trajectory, through the pinhole,
-   the MEI and the panorama camera;
+   the MEI and the panorama camera, and through a 2-view rig (the scene
+   of ``tests/test_multiview.py``: unaligned ATE under 0.05, the rig's
+   view 0 at identity);
 6. drives six main paths, each a seeded synthetic 720p stream through
    ``DefaultAnnotationPipeline`` on ``cuda`` (random DroidNet weights from a
    seed), with the kernels' launch counts set to 0 just before and read
@@ -36,9 +38,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and per stage), stage host seconds and launches of each.  A spy copies
    to host memory the coords of the first frontend call (at the largest
    edge count) and of the first backend call that reach each kernel;
-7. times K1 (volume run) and K2 (alt run) on those captured coords, with
-   seeded features of the same shapes, warm and with a cold L2 cache;
-8. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
+7. drives two rig main paths the same way: a seeded synthetic pair of
+   720p streams (view 1 seen through the rig's offset) as a
+   ``MultiviewVideoList`` through the pipeline, volume (K1) and
+   ``corr_mode: alt`` (K2), each frame edge expanded into one edge per
+   view; prints time steps and view-frames per second besides;
+8. times K1 (volume runs) and K2 (alt runs) on the coords captured in the
+   single-view and the rig runs, with seeded features of the same shapes,
+   warm and with a cold L2 cache, and holds both against their plain
+   versions on a 720p rig edge set with cross-view edges (the main path
+   proposes none), in volume/bf16, volume/int8 and alt;
+9. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
 
 Kernel times come from CUDA events: the mean of back-to-back launches
 (warm L2) as ``ms``, and the median of launches each preceded by a 128 MB
@@ -73,6 +83,9 @@ MAIN_H, MAIN_W = 720, 1280
 FRONTEND_EDGES = 48  # FactorGraph max_factors of the frontend
 # a 720p fisheye-like MEI camera: focal, principal point, k1
 MEI_INTRINSICS = [900.0, 900.0, MAIN_W / 2.0, MAIN_H / 2.0, 0.6]
+RIG_VIEWS = 2
+RIG_SHIFT_PX = 48  # view 1's crop of the canvas sits this far right of view 0's
+RIG_XI = [0.12, 0.0, 0.0, 0.0, 0.1, 0.0]  # view 1: 0.12 m right, yawed 0.1 rad
 
 
 def _require_environment():
@@ -550,26 +563,131 @@ def oracle_phase(camera: str = "pinhole"):
             "limit": limit}
 
 
+def rig_oracle_phase():
+    """The 2-view rig scene of ``tests/test_multiview.py`` on the card (48×64,
+    10 frames, view 1 0.12 m right and yawed 0.1 rad, per-view intrinsics,
+    GT-flow oracle through the rig chain): the rig base's unaligned ATE must
+    stay under that test's 0.05 and the rig's view 0 at identity to 1e-6."""
+    import torch
+
+    from vipe_tpu_torch.ops import cameras as cam
+    from vipe_tpu_torch.ops import geom, lie
+    from vipe_tpu_torch.slam import system as slam_system
+    from vipe_tpu_torch.streams.base import (FrameAttribute, MultiviewVideoList, VideoFrame,
+                                             VideoStream)
+
+    H, W, T, V, depth = 48, 64, 10, RIG_VIEWS, 2.0
+    ht, wd = H // 8, W // 8
+    rng = np.random.default_rng(11)
+    c2w = [lie.se3_identity()]
+    for _ in range(1, T):
+        xi = torch.tensor([0.06, 0.004 * rng.normal(), 0.003 * rng.normal(),
+                           0.002 * rng.normal(), 0.003 * rng.normal(), 0.002 * rng.normal()],
+                          dtype=torch.float32)
+        c2w.append(lie.se3_mul(c2w[-1], lie.se3_exp(xi)))
+    gt_c2w = torch.stack(c2w)
+    rig = torch.stack([lie.se3_identity(), lie.se3_exp(torch.tensor(RIG_XI))])
+    u, v = geom.pixel_grid(ht, wd)
+    base = (1.0 / depth) * (1.0 + 0.1 * torch.sin(u / 2.0) * torch.cos(v / 1.5))
+    disps = torch.stack([base * (1.0 + 0.02 * (k % 3)) for k in range(T * V)])
+    intr = torch.tensor([[W * 1.2, W * 1.2, W / 2.0, H / 2.0],
+                         [W * 1.15, W * 1.15, W / 2.0, H / 2.0]])
+
+    class View(VideoStream):
+        def __init__(self, view):
+            self.view = view
+            self.imgs = [rng.random((H, W, 3)).astype(np.float32) for _ in range(T)]
+
+        def __len__(self):
+            return T
+
+        def frame_size(self):
+            return (H, W)
+
+        def attributes(self):
+            return {FrameAttribute.RGB, FrameAttribute.INTRINSICS, FrameAttribute.METRIC_DEPTH}
+
+        def __iter__(self):
+            for k in range(T):
+                d = disps[k * V + self.view].numpy()
+                yield VideoFrame(raw_frame_idx=k, rgb=self.imgs[k],
+                                 metric_depth=np.kron(1.0 / d, np.ones((8, 8), np.float32)),
+                                 intrinsics=intr[self.view].numpy().copy())
+
+    dev = torch.device("cuda")
+    P, R, D = lie.se3_inv(gt_c2w).to(dev), rig.to(dev), disps.to(dev)
+    I_grid = (intr / 8.0).to(dev)
+    live = {}
+
+    class SpyBuffer(slam_system.GraphBuffer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            live["buf"] = self
+
+    def oracle(net, inp, corr, motn, ii, jj, num_frames):
+        buf = live["buf"]
+        coords1 = motn[..., :2] + geom.coords_grid(ht, wd, dev)
+        di, dj = ii.cpu().numpy(), jj.cpu().numpy()
+        fi = torch.as_tensor(buf.tstamp[di // V], device=dev)
+        fj = torch.as_tensor(buf.tstamp[dj // V], device=dev)
+        qi = torch.as_tensor(di % V, device=dev)
+        qj = torch.as_tensor(dj % V, device=dev)
+        gt, valid = geom.reproject_mv(P, R, D, I_grid, cam.CameraType.PINHOLE,
+                                      fi, qi, fi * V + qi, fj, qj)
+        weight = valid[..., None].float().expand_as(gt).contiguous()
+        return net, gt - coords1, weight, torch.full((num_frames, ht, wd), 0.01, device=dev)
+
+    oracle.host_only = True  # reads host state: the sequential frontend
+
+    def zeros(images):
+        return torch.zeros((images.shape[0], ht, wd, 128), dtype=torch.bfloat16, device=dev)
+
+    orig = slam_system.GraphBuffer
+    slam_system.GraphBuffer = SpyBuffer
+    try:
+        out = slam_system.SLAMSystem(
+            config=dict(resize_area=H * W, filter_thresh=-1.0, keyframe_thresh=0.0,
+                        warmup=4, buffer=64, infill_chunk_size=6, backend_iters=8),
+            device=dev, update_fn=oracle, encode_features=zeros,
+            encode_context=lambda im: (zeros(im), zeros(im)),
+        ).run(MultiviewVideoList("rig_oracle", [View(0), View(1)], rig.numpy()))
+    finally:
+        slam_system.GraphBuffer = orig
+    traj = out.trajectory
+    ate = float(np.sqrt(((traj[:, :3] - gt_c2w[:, :3].numpy()) ** 2).sum(-1).mean()))
+    rig0_err = float(np.abs(out.rig[0] - np.array([0, 0, 0, 0, 0, 0, 1.0])).max())
+    if not (traj.shape == (T, 7) and np.isfinite(traj).all() and ate < 0.05):
+        raise AssertionError(f"rig oracle SLAM on the card: unaligned ATE {ate} (limit 0.05)")
+    if not rig0_err <= 1e-6 or out.intrinsics.shape != (V, 4):
+        raise AssertionError(f"rig oracle SLAM: rig view 0 off identity by {rig0_err}, "
+                             f"intrinsics {out.intrinsics.shape}")
+    return {"camera": "pinhole rig", "views": V, "frames": T,
+            "keyframes": len(out.keyframes), "unaligned_ate": ate, "limit": 0.05,
+            "rig_view0_max_err": rig0_err}
+
+
 # ------------------------------------------------------------------ main path
 
 
 def synth_stream(n_frames: int, h: int = MAIN_H, w: int = MAIN_W, seed: int = 0,
-                 intrinsics=None, mask_rows: int = 0):
+                 intrinsics=None, mask_rows: int = 0, x_offset: int = 0, pad: int = 0):
     """A textured canvas translated frame by frame (real flow, no parallax),
     made from ``seed``.  With ``intrinsics`` every frame carries them; with
     ``mask_rows`` every frame's validity mask marks that many bottom rows
-    invalid (a band, like a car's hood)."""
+    invalid (a band, like a car's hood).  ``pad`` widens the canvas and
+    ``x_offset`` moves the crop right: two streams of one seed and pad are
+    two views of one canvas."""
     from vipe_tpu_torch.streams.base import FrameAttribute, VideoFrame, VideoStream
 
     rng = np.random.default_rng(seed)
-    base = rng.random((h + 64, w + 64, 3)).astype(np.float32)
+    base = rng.random((h + 64, w + 64 + pad, 3)).astype(np.float32)
     mask = None
     if mask_rows:
         mask = np.ones((h, w), bool)
         mask[h - mask_rows:] = False
 
     class Synth(VideoStream):
-        _name = f"synth{seed}"
+        _name = f"synth{seed}" + (f"_x{x_offset}" if x_offset else "")
 
         def __len__(self):
             return n_frames
@@ -587,7 +705,7 @@ def synth_stream(n_frames: int, h: int = MAIN_H, w: int = MAIN_W, seed: int = 0,
 
         def __iter__(self):
             for k in range(n_frames):
-                ox, oy = (k * 5) % 64, (k * 3) % 64
+                ox, oy = (k * 5) % 64 + x_offset, (k * 3) % 64
                 yield VideoFrame(
                     raw_frame_idx=k, rgb=base[oy: oy + h, ox: ox + w], mask=mask,
                     intrinsics=None if intrinsics is None else np.array(intrinsics, np.float32))
@@ -595,11 +713,25 @@ def synth_stream(n_frames: int, h: int = MAIN_H, w: int = MAIN_W, seed: int = 0,
     return Synth()
 
 
-def calibrate_filter_thresh(stream, n_keyframes: int) -> float:
+def rig_streams(n_frames: int, seed: int = 0):
+    """A rig of two views of one seeded canvas, view 1's crop
+    ``RIG_SHIFT_PX`` to the right of view 0's, with the rig poses."""
+    import torch
+
+    from vipe_tpu_torch.ops import lie
+
+    views = [synth_stream(n_frames, seed=seed, pad=RIG_SHIFT_PX, x_offset=x)
+             for x in (0, RIG_SHIFT_PX)]
+    rig = torch.stack([lie.se3_identity(), lie.se3_exp(torch.tensor(RIG_XI))]).numpy()
+    return views, rig
+
+
+def calibrate_filter_thresh(streams, n_keyframes: int) -> float:
     """With random DroidNet weights the motion-filter scores have no fixed
     scale.  Score every frame against every earlier frame as reference, then
     pick the threshold whose filter pass (the first and the last frame are
-    always keyframes) gives the keyframe count nearest ``n_keyframes``."""
+    always keyframes) gives the keyframe count nearest ``n_keyframes``.
+    ``streams``: one stream, or a rig's list of views (scored together)."""
     import torch
 
     from vipe_tpu_torch.models.droidnet import build_droidnet
@@ -610,10 +742,15 @@ def calibrate_filter_thresh(stream, n_keyframes: int) -> float:
     model = build_droidnet("cuda")
     ef, ec, uf = droidnet_fns(model)
     mf = MotionFilter(ef, ec, uf, thresh=1e9)
-    frames = ProcessedVideoStream(stream, [StandardResizeStreamProcessor()])
+    streams = streams if isinstance(streams, list) else [streams]
+    frames = zip(*(ProcessedVideoStream(s, [StandardResizeStreamProcessor()]) for s in streams))
+
+    def upload(views):
+        rgb = np.stack([(np.clip(f.rgb, 0, 1) * 255).astype(np.uint8) for f in views])
+        return torch.from_numpy(rgb[0] if len(views) == 1 else rgb).cuda()
+
     with torch.no_grad():
-        toks = [mf.submit(torch.from_numpy((np.clip(f.rgb, 0, 1) * 255).astype(np.uint8)).cuda())
-                for f in frames]
+        toks = [mf.submit(upload(views)) for views in frames]
         n = len(toks)
         score = np.full((n, n), -np.inf)
         for i in range(n - 1):
@@ -713,12 +850,12 @@ def coords_spy():
         profiling.stage, corr_ops.corr_lookup_pyramid = orig_stage, orig_lookup
 
 
-def mainpath_coords_phase(kernels):
+def mainpath_coords_phase(kernels, key: str = "mainpath_coords"):
     """Times K1 and K2 on the coords the main path gave them, with seeded
     features of the same shapes: a kernel's time depends on the coords, not
     on the values.  ``kernels`` maps "K1"/"K2" to (record, what
-    ``coords_spy`` captured in the run that launches it); adds
-    ``mainpath_coords`` to each record."""
+    ``coords_spy`` captured in the run that launches it); adds ``key`` to
+    each record."""
     import torch
 
     from vipe_tpu_torch.ops import corr as corr_ops
@@ -727,7 +864,7 @@ def mainpath_coords_phase(kernels):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     for kernel, (rec, captured) in kernels.items():
-        rec["mainpath_coords"] = {}
+        rec[key] = {}
         for role in ("frontend", "backend"):
             cap = captured.get((kernel, role))
             if cap is None:
@@ -753,7 +890,7 @@ def mainpath_coords_phase(kernels):
                 raise AssertionError(f"{kernel} on the main path's {role} coords: "
                                      f"max abs err {err} > 1e-4")
             ms = _cuda_ms(run, 20)
-            rec["mainpath_coords"][role] = {
+            rec[key][role] = {
                 "E": E, "grid": [ht, wd], "calls": cap["calls"], "edges_seen": sorted(cap["edges"]),
                 "max_abs_err": err, "tol": 1e-4,
                 "ms": ms, "cold_ms": _cuda_ms_cold(run, 20),
@@ -764,11 +901,68 @@ def mainpath_coords_phase(kernels):
             torch.cuda.empty_cache()
 
 
+def cross_view_phase():
+    """K1 and K2 against their plain versions on a rig edge set with
+    cross-view edges (frame edges ``i → i``, which target the other view),
+    at the 720p SLAM grid: the correlation state and the coords that a
+    2-view ``FactorGraph`` builds for its expanded edges, in volume/bf16,
+    volume/int8 and alt.  The main path proposes no cross-view edge, so
+    this is where they meet the kernels."""
+    import torch
+
+    from vipe_tpu_torch.ops import corr_kernels as ck
+    from vipe_tpu_torch.ops import lie
+    from vipe_tpu_torch.slam.buffer import GraphBuffer
+    from vipe_tpu_torch.slam.factor_graph import FactorGraph
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    n, V, H, W = 6, RIG_VIEWS, 328, 584  # 720p → 328×584 SLAM frames → 41×73 grid
+    rig = torch.stack([lie.se3_identity(), lie.se3_exp(torch.tensor(RIG_XI))])
+    buf = GraphBuffer(H, W, buffer_size=8, device=dev, n_views=V, rig=rig.numpy())
+    xi = torch.zeros((n, 6), device=dev)
+    xi[:, 0] = 0.05 * torch.arange(n, device=dev)
+    buf.poses[:n] = lie.se3_exp(xi)
+    buf.disps[: n * V] = 0.5 + 0.1 * torch.rand((n * V, buf.ht, buf.wd), generator=g, device=dev)
+    buf.intrinsics = torch.tensor([[500.0, 500.0, W / 2, H / 2], [520.0, 520.0, W / 2, H / 2]],
+                                  device=dev)
+    buf.fmaps[: n * V] = torch.randn((n * V, buf.ht, buf.wd, 128), generator=g,
+                                     device=dev).to(torch.bfloat16)
+    buf.n_frames = n
+    out = {}
+    for mode, dtype in (("volume", "bf16"), ("volume", "int8"), ("alt", "bf16")):
+        graph = FactorGraph(buf, None, max_factors=48, incremental=True, corr_mode=mode,
+                            corr_dtype=dtype)
+        graph.add_neighborhood_factors(0, n, r=2)
+        graph.add_factors(np.arange(n), np.arange(n))
+        coords, _ = buf.reproject_exp(graph.exp)
+        coords = coords.contiguous()
+        if mode == "alt":
+            p = graph.corr_pyr
+            err = float((ck.corr_fused(p[0], p[1:], coords)
+                         - ck.corr_fused_plain(p[0], p[1:], coords)).abs().max())
+        else:
+            err = float((ck.corr_lookup(graph.corr_pyr, coords, scales=graph.corr_scale)
+                         - ck.corr_lookup_plain(graph.corr_pyr, coords, scales=graph.corr_scale)
+                         ).abs().max())
+        cross = int((graph.exp[:, 0] == graph.exp[:, 3]).sum())
+        if not err <= 1e-4 or cross != n * V:
+            raise AssertionError(f"{mode}/{dtype} on rig edges with {cross} cross-view rows: "
+                                 f"max abs err {err} > 1e-4")
+        out[f"{mode}_{dtype}"] = {"E": int(coords.shape[0]), "cross_view_rows": cross,
+                                  "max_abs_err": err, "tol": 1e-4}
+        del graph, coords
+    del buf
+    torch.cuda.empty_cache()
+    return out
+
+
 def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
-                    init=None):
+                    init=None, rig=False):
     """One run of the main path with ``slam_cfg`` over ``n_frames`` of the
-    seeded stream (``stream_kw``: its intrinsics and mask band).
-    ``required`` names the launch counts that must be > 0."""
+    seeded stream (``stream_kw``: its intrinsics and mask band), or with
+    ``rig`` of the seeded rig's views.  ``required`` names the launch
+    counts that must be > 0."""
     import gc
 
     import torch
@@ -776,9 +970,15 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
     from vipe_tpu_torch.ops import cameras as cam
     from vipe_tpu_torch.ops import corr_kernels as ck
     from vipe_tpu_torch.pipeline.default import DefaultAnnotationPipeline
+    from vipe_tpu_torch.streams.base import MultiviewVideoList
     from vipe_tpu_torch.utils import profiling
 
-    stream = synth_stream(n_frames, **(stream_kw or {}))
+    if rig:
+        views, rig_poses = rig_streams(n_frames)
+        stream = MultiviewVideoList("synth_rig", views, rig_poses)
+    else:
+        stream = synth_stream(n_frames, **(stream_kw or {}))
+    n_views = len(stream) if rig else 1
     pipe = DefaultAnnotationPipeline(
         init=init or {"intrinsics": "fov", "fov_deg": 60.0},
         slam={"optimize_intrinsics": True, "filter_thresh": thresh, **slam_cfg},
@@ -809,22 +1009,33 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
         raise AssertionError(f"{label} main path: trajectory {traj.shape} not finite / wrong shape")
     if not np.isfinite(out.intrinsics).all() or out.intrinsics.shape != (n_intr,):
         raise AssertionError(f"{label} main path: intrinsics {out.intrinsics}")
-    quat_norm = np.linalg.norm(traj[:, 3:], axis=-1)
-    if not np.allclose(quat_norm, 1.0, atol=1e-3):
-        raise AssertionError(f"{label} main path: rotations are not unit quaternions")
+    views_out = out.payload.get("view_outputs", [out])
+    if rig:
+        if slam_out.intrinsics.shape != (n_views, n_intr) or len(views_out) != n_views:
+            raise AssertionError(f"{label} main path: rig intrinsics {slam_out.intrinsics.shape}"
+                                 f", {len(views_out)} views")
+        if not np.isfinite(slam_out.rig).all():
+            raise AssertionError(f"{label} main path: rig {slam_out.rig}")
+    for view_out in views_out:
+        traj = np.asarray(view_out.trajectory)
+        quat_norm = np.linalg.norm(traj[:, 3:], axis=-1)
+        if not np.isfinite(traj).all() or not np.allclose(quat_norm, 1.0, atol=1e-3):
+            raise AssertionError(f"{label} main path: poses not finite or rotations not unit "
+                                 "quaternions")
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"{label} main path did not launch {name}")
     return {
         "label": label, "slam": slam_cfg,
-        "frames": n_frames, "resolution": [MAIN_H, MAIN_W],
+        "frames": n_frames, "views": n_views, "resolution": [MAIN_H, MAIN_W],
         "keyframes": int(len(slam_out.keyframes)), "filter_thresh": thresh,
-        "wall_s": wall, "fps": n_frames / wall,
+        "wall_s": wall, "fps": n_frames / wall, "view_frames_per_s": n_frames * n_views / wall,
         "peak_mem_gib": peak / 2 ** 30, "resident_before_gib": resident / 2 ** 30,
         "stage_peak_mem_gib": peaks,
         "launches": launches,
         "stages_host_s": stages,
-        "intrinsics": [float(x) for x in out.intrinsics],
+        "intrinsics": np.asarray(slam_out.intrinsics).tolist(),
+        **({"rig": np.asarray(slam_out.rig).tolist()} if rig else {}),
         "ba_residual": float(out.ba_residual),
         # frontend: keyframes removed, removed late, waits on deferred reads
         **slam_out.frontend_stats,
@@ -855,6 +1066,7 @@ def main():
     print(json.dumps({"kernel_check": {"K2": k2["cases"]}}), flush=True)
     for camera in ("pinhole", "mei", "panorama"):
         print(json.dumps({"oracle": oracle_phase(camera)}), flush=True)
+    print(json.dumps({"oracle": rig_oracle_phase()}), flush=True)
 
     thresh = calibrate_filter_thresh(synth_stream(MAIN_FRAMES), MAIN_KEYFRAMES)
     # the default ordering (keyframe_spec_depth 2, proximity_spec true)
@@ -874,15 +1086,29 @@ def main():
         ("mei_masks_depth", {"camera_type": "mei", "keyframe_depth": "constant-2.0"},
          MAIN_FRAMES, ["corr_lookup"], {"stream_kw": mei, "init": {"intrinsics": "gt"}}),
     ]
+    # the rig: 2 views, every frame edge expanded into one edge per view;
+    # its filler keeps volumes in alt mode too, as the JAX package's does
+    rig_thresh = calibrate_filter_thresh(rig_streams(MAIN_FRAMES)[0], MAIN_KEYFRAMES)
+    runs += [
+        ("rig_volume", {}, MAIN_FRAMES, ["corr_lookup"], {"rig": True}),
+        ("rig_alt", {"corr_mode": "alt"}, MAIN_FRAMES, ["corr_fused"], {"rig": True}),
+    ]
     main_paths, captured = {}, {}
     for label, cfg, n_frames, required, kw in runs:
-        main_paths[label], captured[label] = main_path_phase(label, cfg, n_frames, thresh,
-                                                             required, **kw)
+        main_paths[label], captured[label] = main_path_phase(
+            label, cfg, n_frames, rig_thresh if kw.get("rig") else thresh, required, **kw)
         print(json.dumps({"main_path": main_paths[label]}), flush=True)
 
     k1["launches"] = main_paths["volume"]["launches"]["corr_lookup"]
     k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
+    k1["rig_launches"] = main_paths["rig_volume"]["launches"]["corr_lookup"]
+    k2["rig_launches"] = main_paths["rig_alt"]["launches"]["corr_fused"]
     mainpath_coords_phase({"K1": (k1, captured["volume"]), "K2": (k2, captured["alt"])})
+    mainpath_coords_phase({"K1": (k1, captured["rig_volume"]), "K2": (k2, captured["rig_alt"])},
+                          key="rig_mainpath_coords")
+    cross = cross_view_phase()
+    k1["rig_cross_view"] = {m: c for m, c in cross.items() if m.startswith("volume")}
+    k2["rig_cross_view"] = cross["alt_bf16"]
     print(json.dumps({"kernels": [k1, k2]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

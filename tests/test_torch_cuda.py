@@ -295,3 +295,58 @@ def test_late_removal_lookups_match_plain(cuda_device, corr_mode, corr_dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     assert int(torch.count_nonzero(out)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("corr_mode,corr_dtype", [("volume", "bf16"), ("volume", "int8"),
+                                                  ("alt", "bf16")])
+def test_rig_cross_view_lookups_match_plain(cuda_device, corr_mode, corr_dtype):
+    """A 2-view rig graph with temporal and cross-view edges (``i → i``
+    targets the other view's slot) on the card: its expanded rows' state
+    equals a fresh build from the gathered slots, and K1 (K2 in alt mode)
+    on the expanded edges' coords equals its plain version."""
+    from vipe_tpu_torch.ops import lie
+    from vipe_tpu_torch.slam.buffer import GraphBuffer
+    from vipe_tpu_torch.slam.factor_graph import FactorGraph
+
+    H, W, n, V = 48, 64, 5, 2
+    rng = np.random.default_rng(10)
+    rig = torch.stack([lie.se3_identity(), lie.se3_exp(torch.tensor([0.12, 0, 0, 0, 0.1, 0.0]))])
+    buf = GraphBuffer(height=H, width=W, buffer_size=8, device=cuda_device, n_views=V,
+                      rig=rig.numpy())
+    intr = np.asarray([[W, W, W / 2, H / 2], [W * 1.1, W * 1.1, W / 2, H / 2]], np.float32)
+    for k in range(n):
+        feats = [torch.from_numpy(rng.standard_normal((V, H // 8, W // 8, 128))
+                                  .astype(np.float32)).to(cuda_device, torch.bfloat16)
+                 for _ in range(3)]
+        buf.append_keyframe(k, torch.zeros((V, H, W, 3), dtype=torch.uint8), *feats,
+                            intrinsics=intr)
+        buf.poses[k, 0] = 0.1 * k
+    g = FactorGraph(buf, None, max_factors=24, incremental=True, corr_mode=corr_mode,
+                    corr_dtype=corr_dtype)
+    g.add_neighborhood_factors(0, n, r=1)
+    g.add_factors(np.arange(n), np.arange(n))
+    cross = g.exp[g.exp[:, 0] == g.exp[:, 3]]
+    assert len(cross) == n * V and (cross[:, 1] != cross[:, 4]).all()
+    di = torch.from_numpy(g.exp[:, 2]).to(cuda_device)
+    dj = torch.from_numpy(g.exp[:, 3] * V + g.exp[:, 4]).to(cuda_device)
+    f1, f2 = buf.fmaps[di].float(), buf.fmaps[dj].float()
+    fresh = tcorr.corr_feat_pack(f1, f2) if corr_mode == "alt" else tcorr.corr_pyramid(f1, f2)
+    if not g.corr_q:
+        for stored, ref in zip(g.corr_pyr, fresh):
+            torch.testing.assert_close(stored.float(), ref.float(), rtol=0, atol=0)
+    coords, _ = buf.reproject_exp(g.exp)
+    coords = coords.contiguous()
+    if corr_mode == "alt":
+        before = ck.corr_fused.launches
+        out = tcorr.corr_lookup_pyramid(g.corr_pyr, coords)
+        assert ck.corr_fused.launches == before + 1
+        ref = ck.corr_fused_plain(g.corr_pyr[0], g.corr_pyr[1:], coords, prescaled=True)
+    else:
+        before = ck.corr_lookup.launches
+        out = tcorr.corr_lookup_pyramid(g.corr_pyr, coords, scales=g.corr_scale)
+        assert ck.corr_lookup.launches == before + 1
+        ref = ck.corr_lookup_plain(g.corr_pyr, coords, scales=g.corr_scale)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert int(torch.count_nonzero(out)) > 0

@@ -26,7 +26,13 @@
   ``corr_mode=alt`` and ``corr_dtype=int8``, where the inner filler's graph
   must hold packed features (alt) or bf16 volumes (int8), as the JAX
   package's filler does; and once more with per-frame masks, the
-  ``constant-2.0`` keyframe depth prior and a keyframe stride.  The
+  ``constant-2.0`` keyframe depth prior and a keyframe stride.  The JAX
+  system runs once, in volume/bf16: with the oracle, which ignores the
+  correlation features, its alt and int8 runs give the same output bit for
+  bit, so the port's alt and int8 runs are held against that one.  The
+  JAX runs of the oracle scenes go in a second process (``BackgroundJax``)
+  that the module's first test starts: they compile hundreds of small XLA
+  programs, which now overlap the port's tests.  The
   masks' downsampling equals the JAX system's ``cv2.resize`` formula; the
   depth prior's refresh equals the JAX buffer's.
 * random-weight DroidNet runs of the port (volume and alt): finite outputs
@@ -448,16 +454,64 @@ def _run_with_spy(module, buffer_ref, run):
         module.GraphBuffer = orig
 
 
-def _oracle_runs(corr_cfg):
-    """Both systems on the oracle stream with the ``corr_cfg`` options; the
-    port's inner-filler graphs are kept for inspection."""
-    import vipe_tpu.slam.system as jsystem
-    from vipe_tpu_torch.slam import inner_filler as tfiller
+ORACLE_SEED = 3
+CORR_KEYS = ("corr_mode", "corr_dtype")
 
-    rng = np.random.default_rng(3)
+
+class BackgroundJax:
+    """JAX reference runs in one spawned process.  The JAX package runs the
+    host-driven oracle scenes op by op, compiling hundreds of small XLA
+    programs; in a process of their own they take another core while the
+    module's other tests run, and the tests that compare wait for their
+    results.  ``jobs`` maps a name to a picklable (function, args); they run
+    in order, so later ones reuse the compiles of earlier ones.  ``start``
+    runs from the module's first test, not at import: every xdist worker
+    imports the module, one runs it."""
+
+    def __init__(self, jobs):
+        self.jobs = dict(jobs)
+        self.pool = None
+        self.futures = {}
+
+    def start(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        # the process inherits the environment, so it shares the JAX
+        # compile cache of the test session
+        self.pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {name: self.pool.submit(fn, *args)
+                        for name, (fn, args) in self.jobs.items()}
+
+    def result(self, name):
+        return self.futures[name].result()
+
+    def stop(self):
+        """Cancels the jobs not started, waits for a running one (killed, it
+        could leave a truncated entry in the compile cache) and ends the
+        process."""
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        self.pool = None
+
+
+@functools.lru_cache(maxsize=None)
+def _oracle_scene(seed=ORACLE_SEED):
+    rng = np.random.default_rng(seed)
     poses_w2c, disps, intr_full = make_gt(rng)
-    stream = SyntheticStream(rng, disps, intr_full)
+    return poses_w2c, disps, intr_full, SyntheticStream(rng, disps, intr_full)
 
+
+def _jax_oracle_job():
+    """The JAX system on the oracle scene in volume/bf16, run once for every
+    parity test of this module.  The oracle update function ignores the
+    correlation features, so JAX's ``corr_mode=alt`` and ``corr_dtype=int8``
+    runs of the same scene give this output bit for bit; the port's runs in
+    those modes are held against it, and each graph's correlation state
+    against JAX's in the same mode (``test_factor_graph_update_round_*``).
+    Returns (scene seed, config, output)."""
+    import vipe_tpu.slam.system as jsystem
+
+    poses_w2c, disps, intr_full, stream = _oracle_scene()
     ref_j = [None]
     oracle_j = make_oracle(ref_j, poses_w2c, disps, intr_full)
 
@@ -468,10 +522,58 @@ def _oracle_runs(corr_cfg):
         z = ef_j(params, images)
         return z, z
 
+    config = dict(SYSTEM_CFG, keyframe_spec_depth=1, proximity_spec=False)
     out_j = _run_with_spy(jsystem, ref_j, lambda: jsystem.SLAMSystem(
-        config=dict(SYSTEM_CFG, keyframe_spec_depth=1, proximity_spec=False, **corr_cfg),
-        update_fn=oracle_j, params=None, encode_features=ef_j, encode_context=ec_j,
+        config=config, update_fn=oracle_j, params=None, encode_features=ef_j,
+        encode_context=ec_j,
     ).run(stream))
+    return ORACLE_SEED, config, out_j
+
+
+def _options_scene():
+    rng = np.random.default_rng(ORACLE_SEED)
+    poses_w2c, disps, intr_full = make_gt(rng)
+    stream = MaskedNoDepthStream(rng, disps, intr_full, with_depth=False)
+    return poses_w2c, disps, intr_full, stream, dict(SYSTEM_CFG, filter_thresh=float("inf"),
+                                                     keyframe_stride=1)
+
+
+def _jax_options_job():
+    """The JAX system on the options scene of ``oracle_runs_options``."""
+    import vipe_tpu.slam.system as jsystem
+    from vipe_tpu.priors.depth.factory import make_depth_model as jmake
+
+    poses_w2c, disps, intr_full, stream, cfg = _options_scene()
+    ref_j = [None]
+    oracle_j = make_oracle(ref_j, poses_w2c, disps, intr_full)
+
+    def ef_j(params, images):
+        return jnp.zeros((images.shape[0], HT, WD, 128), jnp.float32)
+
+    return _run_with_spy(jsystem, ref_j, lambda: jsystem.SLAMSystem(
+        config=dict(cfg, keyframe_spec_depth=1, proximity_spec=False), update_fn=oracle_j,
+        params=None, encode_features=ef_j, encode_context=lambda p, im: (ef_j(p, im),) * 2,
+        metric_depth=jmake("constant-2.0"),
+    ).run(stream))
+
+
+# the options run reuses the oracle run's compiles: the same keyframe set
+_JAX_JOBS = BackgroundJax({"oracle": (_jax_oracle_job, ()), "options": (_jax_options_job, ())})
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_references():
+    _JAX_JOBS.start()
+    yield
+    _JAX_JOBS.stop()
+
+
+def _oracle_runs(corr_cfg):
+    """Both systems on the oracle stream, the port's with the ``corr_cfg``
+    options; the port's inner-filler graphs are kept for inspection."""
+    from vipe_tpu_torch.slam import inner_filler as tfiller
+
+    poses_w2c, disps, intr_full, stream = _oracle_scene()
 
     ref_t = [None]
     oracle_t = make_torch_oracle(ref_t, poses_w2c, disps, intr_full)
@@ -494,6 +596,12 @@ def _oracle_runs(corr_cfg):
         ).run(stream))
     finally:
         tfiller.FactorGraph = orig_graph
+    seed, config_j, out_j = _JAX_JOBS.result("oracle")
+    # the JAX output is the same scene's under the same config, but for the
+    # correlation options, which the oracle does not read
+    assert seed == ORACLE_SEED and set(corr_cfg) <= set(CORR_KEYS)
+    assert {k: v for k, v in config_j.items() if k not in CORR_KEYS} == dict(
+        SYSTEM_CFG, keyframe_spec_depth=1, proximity_spec=False)
     return out_j, out_t, np.asarray(jlie.se3_inv(poses_w2c)), filler_graphs
 
 
@@ -594,27 +702,9 @@ def oracle_runs_options():
     every frame a keyframe (the keyframe set, and so every shape, of
     ``oracle_runs``: the JAX compiles are shared), in one oracle-scene run
     of each package; the port's buffer is kept."""
-    import vipe_tpu.slam.system as jsystem
-    from vipe_tpu.priors.depth.factory import make_depth_model as jmake
     from vipe_tpu_torch.priors.depth.factory import make_depth_model as tmake
 
-    rng = np.random.default_rng(3)
-    poses_w2c, disps, intr_full = make_gt(rng)
-    stream = MaskedNoDepthStream(rng, disps, intr_full, with_depth=False)
-    cfg = dict(SYSTEM_CFG, filter_thresh=float("inf"), keyframe_stride=1)
-
-    ref_j = [None]
-    oracle_j = make_oracle(ref_j, poses_w2c, disps, intr_full)
-
-    def ef_j(params, images):
-        return jnp.zeros((images.shape[0], HT, WD, 128), jnp.float32)
-
-    out_j = _run_with_spy(jsystem, ref_j, lambda: jsystem.SLAMSystem(
-        config=dict(cfg, keyframe_spec_depth=1, proximity_spec=False), update_fn=oracle_j,
-        params=None, encode_features=ef_j, encode_context=lambda p, im: (ef_j(p, im),) * 2,
-        metric_depth=jmake("constant-2.0"),
-    ).run(stream))
-
+    poses_w2c, disps, intr_full, stream, cfg = _options_scene()
     ref_t = [None]
     oracle_t = make_torch_oracle(ref_t, poses_w2c, disps, intr_full)
 
@@ -625,6 +715,7 @@ def oracle_runs_options():
         config=cfg, device="cpu", update_fn=oracle_t, encode_features=ef_t,
         encode_context=lambda im: (ef_t(im), ef_t(im)), metric_depth=tmake("constant-2.0"),
     ).run(stream))
+    out_j = _JAX_JOBS.result("options")
     return out_j, out_t, np.asarray(jlie.se3_inv(poses_w2c)), ref_t[0]
 
 

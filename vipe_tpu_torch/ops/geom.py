@@ -68,6 +68,17 @@ def reproject(poses, disps, intrinsics, camera_type, ii, jj):
     return iproj_i_proj_j_disp(Gij, disps[ii], intr[ii], intr[jj], camera_type)
 
 
+def reproject_mv(poses, rig, disps, intrinsics, camera_type, pi, qi, di, pj, qj):
+    """Rig reprojection: the pixels of (frame ``pi``, view ``qi``), at the
+    disparities of slot ``di``, → coords in (frame ``pj``, view ``qj``),
+    through ``rig_qj⁻¹·T_pj·T_pi⁻¹·rig_qi``.  poses (N, 7), rig (V, 7),
+    disps (N·V, H, W) slot-flattened (frame·V + view), intrinsics (V, D).
+    Returns coords (E, H, W, 2) and valid (E, H, W)."""
+    Gij = lie.se3_mul(lie.se3_inv(rig[qj]),
+                      lie.se3_mul(poses[pj], lie.se3_mul(lie.se3_inv(poses[pi]), rig[qi])))
+    return iproj_i_proj_j_disp(Gij, disps[di], intrinsics[qi], intrinsics[qj], camera_type)
+
+
 def induced_flow(poses, disps, intrinsics, camera_type, ii, jj):
     """Flow field + validity induced by geometry (coords − grid)."""
     coords, valid = reproject(poses, disps, intrinsics, camera_type, ii, jj)
@@ -89,12 +100,28 @@ def frame_distance(poses, disps, intrinsics, ii, jj, di=None,
             if intrinsics.dim() == 1 else intrinsics[..., :4])
     if di is None:
         di = ii
-    disp = disps[di]                                      # (E, h, w)
+    return _frame_distance_impl(poses[ii], poses[jj], disps[di], intr[ii], intr[jj], beta)
+
+
+def frame_distance_mv(poses, rig, disps, intrinsics, pi, qi, di, pj, qj,
+                      beta: float = 0.3):
+    """``frame_distance`` over expanded (frame, view) edges of a rig: each
+    view's camera pose is ``rig[q]⁻¹·poses[p]``.  ``intrinsics``: (4,) or
+    (V, 4) pinhole-equivalent at grid scale."""
+    V = rig.shape[0]
+    intr = (intrinsics[:4].expand(V, 4) if intrinsics.dim() == 1 else intrinsics[..., :4])
+    pose_i = lie.se3_mul(lie.se3_inv(rig[qi]), poses[pi])
+    pose_j = lie.se3_mul(lie.se3_inv(rig[qj]), poses[pj])
+    return _frame_distance_impl(pose_i, pose_j, disps[di], intr[qi], intr[qj], beta)
+
+
+def _frame_distance_impl(pose_i, pose_j, disp, intr_i, intr_j, beta: float):
+    """Per-edge poses (E, 7), disparities (E, h, w), intrinsics (E, 4)."""
     ht, wd = disp.shape[-2:]
     u, v = pixel_grid(ht, wd, disp.dtype, disp.device)
-    Gij = lie.se3_mul(poses[jj], lie.se3_inv(poses[ii]))  # (E, 7)
-    fx, fy, cx, cy = (t[:, None, None] for t in intr[ii].unbind(-1))
-    fxj, fyj, cxj, cyj = (t[:, None, None] for t in intr[jj].unbind(-1))
+    Gij = lie.se3_mul(pose_j, lie.se3_inv(pose_i))       # (E, 7)
+    fx, fy, cx, cy = (t[:, None, None] for t in intr_i.unbind(-1))
+    fxj, fyj, cxj, cyj = (t[:, None, None] for t in intr_j.unbind(-1))
     X = (u - cx) / fx
     Y = (v - cy) / fy
     X, Y = torch.broadcast_tensors(X, Y)

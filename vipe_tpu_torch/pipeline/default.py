@@ -1,5 +1,8 @@
-"""DefaultAnnotationPipeline (port of ``vipe_tpu/pipeline/default.py``,
-single view): intrinsics processor → SLAMSystem → artifacts.
+"""DefaultAnnotationPipeline (port of ``vipe_tpu/pipeline/default.py``):
+intrinsics processor → SLAMSystem → artifacts.  A rig capture (a
+``MultiviewVideoList``) runs one SLAM over all its views and writes each
+view's artifacts under the view's own stream name, with the view's camera
+trajectory ``c2w · rig[v]`` and its intrinsics.
 
 ``init.intrinsics`` is ``fov`` or ``gt`` (the stream's own); the keyframe
 depth prior of ``slam.keyframe_depth`` is built by the depth factory, which
@@ -10,14 +13,17 @@ one raises ``NotImplementedError``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import pathlib
 
 import numpy as np
+import torch
 
+from ..ops import lie
 from ..ops.cameras import CameraType
 from ..slam.system import SLAMSystem
-from ..streams.base import AssignAttributesProcessor, ProcessedVideoStream
+from ..streams.base import AssignAttributesProcessor, MultiviewVideoList, ProcessedVideoStream
 from ..utils import io as io_utils
 from ..utils import profiling
 from ..utils.device import resolve_device
@@ -57,14 +63,19 @@ class DefaultAnnotationPipeline(Pipeline):
 
         return make_depth_model(kd)
 
-    def run(self, video_stream) -> AnnotationPipelineOutput:
-        if isinstance(video_stream, (list, tuple)):
-            raise NotImplementedError("multiview rigs are not ported yet")
-        camera_type = CameraType(self.slam_cfg.get("camera_type", "pinhole"))
+    def _init_stream(self, video_stream):
+        """The stream with the init processors, cached for SLAM's two passes
+        and the artifact pass."""
         procs = []
         if self.init_cfg.get("intrinsics", "fov") in ("fov", None):
             procs.append(HeuristicIntrinsicsProcessor(self.init_cfg.get("fov_deg", 60.0)))
-        stream = ProcessedVideoStream(video_stream, procs).cache(online=True, compress_rgb=True)
+        return ProcessedVideoStream(video_stream, procs).cache(online=True, compress_rgb=True)
+
+    def run(self, video_stream) -> AnnotationPipelineOutput:
+        if isinstance(video_stream, MultiviewVideoList):
+            return self._run_multiview(video_stream)
+        camera_type = CameraType(self.slam_cfg.get("camera_type", "pinhole"))
+        stream = self._init_stream(video_stream)
 
         slam = SLAMSystem(config=self.slam_cfg, device=self.device,
                           metric_depth=self._make_metric_depth())
@@ -76,6 +87,34 @@ class DefaultAnnotationPipeline(Pipeline):
         if self.return_payload:
             output.payload = {"slam_output": slam_out}
         return output
+
+    def _run_multiview(self, video_list) -> AnnotationPipelineOutput:
+        """One SLAM over the rig's views, then each view's artifacts.
+        Returns view 0's output; the payload holds every view's."""
+        V = len(video_list)
+        if V == 1:
+            return self.run(video_list[0])
+        camera_type = CameraType(self.slam_cfg.get("camera_type", "pinhole"))
+        streams = [self._init_stream(s) for s in video_list]
+        slam = SLAMSystem(config=self.slam_cfg, device=self.device,
+                          metric_depth=self._make_metric_depth())
+        with profiling.stage("slam"):
+            slam_out = slam.run(MultiviewVideoList(video_list.name(), streams, video_list.rig),
+                                camera_type=camera_type)
+        del slam
+        gc.collect()
+        traj = torch.as_tensor(slam_out.trajectory)
+        outputs = []
+        for v in range(V):
+            view = dataclasses.replace(
+                slam_out,
+                trajectory=lie.se3_mul(traj, torch.as_tensor(slam_out.rig[v])).numpy(),
+                intrinsics=slam_out.intrinsics[v],
+            )
+            outputs.append(self._post(streams[v], view, camera_type, video_list[v].fps()))
+        if self.return_payload:
+            outputs[0].payload = {"slam_output": slam_out, "view_outputs": outputs}
+        return outputs[0]
 
     def _post(self, stream, slam_out, camera_type, fps):
         """One streaming pass that stamps poses/intrinsics on the frames and

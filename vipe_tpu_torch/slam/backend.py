@@ -1,5 +1,6 @@
 """SLAM backend: global BA over a freshly built proximity graph (port of
-``vipe_tpu/slam/backend.py``)."""
+``vipe_tpu/slam/backend.py``).  With ``optimize_rig_rotation`` a rig's
+rotations join the global BA (view 0 fixed)."""
 
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ class SLAMBackend:
         graph = FactorGraph(
             buf, self.update_fn, max_factors=16 * t, incremental=False,
             corr_mode=c.get("corr_mode", "volume"),
+            optimize_rig=c.get("optimize_rig_rotation", False),
         )
         graph.add_proximity_factors(
             rad=c.get("backend_radius", 2), nms=c.get("backend_nms", 3),
@@ -51,5 +53,6 @@ class SLAMBackend:
             buf.disps[0] = torch.where(buf.disps_sens[0] > 0, buf.disps_sens[0], buf.disps[0])
 
     def run_if_necessary(self, steps: int = 12):
-        if self.config.get("optimize_intrinsics", False):
+        c = self.config
+        if c.get("optimize_intrinsics", False) or c.get("optimize_rig_rotation", False):
             self.run(steps=steps, update_depth=True)

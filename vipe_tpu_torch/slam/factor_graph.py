@@ -14,8 +14,16 @@ correlation state of an incremental graph is, per ``corr_mode`` and
   (``corr_feat_pack``), whose dots K2 recomputes at every lookup;
   ``corr_dtype`` does not apply.
 
+For a V-view rig every frame edge ``(ii, jj)`` expands into V edges, one
+per view, in ``exp`` (rows ``pi, qi, di, pj, qj``; ``di``/``dj`` are the
+buffer slots ``frame·V + view``), and the per-edge device state holds one
+row per expanded edge, V rows per frame edge.  An ``ii == jj`` edge is a
+cross-view edge: its target is the buffer's ``cross_view_idx``.  With V = 1
+an expanded edge is its frame edge.
+
 The learned update operator is injected as ``update_fn(net, inp, corr,
-motn, ii, jj, num_frames) -> (net, delta, weight, eta)``, so tests can swap
+motn, ii, jj, num_frames) -> (net, delta, weight, eta)``, where ``ii``/``jj``
+are the source and target slots and ``eta`` is per slot, so tests can swap
 DroidNet for a geometric oracle.
 """
 
@@ -40,7 +48,8 @@ WEIGHT_DENSE_DISP = 0.001  # flow-term weight of the BA (reference buffer.py:396
 class FactorGraph:
     def __init__(self, buffer, update_fn: Callable, max_factors: int,
                  incremental: bool, optimize_intrinsics: bool = False,
-                 corr_mode: str = "volume", corr_dtype: str = "bf16"):
+                 corr_mode: str = "volume", corr_dtype: str = "bf16",
+                 optimize_rig: bool = False):
         if corr_mode not in ("volume", "alt"):
             raise ValueError(f"corr_mode must be 'volume' or 'alt', got {corr_mode!r}")
         if corr_dtype not in ("bf16", "int8"):
@@ -50,6 +59,8 @@ class FactorGraph:
         self.max_factors = max_factors
         self.incremental = incremental
         self.optimize_intrinsics = optimize_intrinsics
+        self.V = V = buffer.n_views
+        self.optimize_rig = optimize_rig and V > 1
         self.ht, self.wd = buffer.ht, buffer.wd
         dev = self.device = buffer.device
         ht, wd = self.ht, self.wd
@@ -57,6 +68,7 @@ class FactorGraph:
         self.ii = np.zeros(0, np.int64)
         self.jj = np.zeros(0, np.int64)
         self.age = np.zeros(0, np.int64)
+        self.exp = np.zeros((0, 5), np.int64)  # pi, qi, di, pj, qj per state row
         self.target = torch.zeros((0, ht, wd, 2), device=dev)
         self.weight = torch.zeros((0, ht, wd, 2), device=dev)
         self.f_net = torch.zeros((0, ht, wd, 128), device=dev)
@@ -78,11 +90,12 @@ class FactorGraph:
             ]
             if self.corr_q:
                 self.corr_scale = [torch.zeros(0, device=dev) for _ in range(CORR_LEVELS)]
-        # per-frame GRU-predicted BA damping (not shifted on keyframe removal)
-        self.damping = torch.full((buffer.buffer_size, ht, wd), 1e-6, device=dev)
+        # per-slot GRU-predicted BA damping (not shifted on keyframe removal)
+        self.damping = torch.full((buffer.buffer_size * V, ht, wd), 1e-6, device=dev)
         # inactive (stored) factors
         self.ii_inac = np.zeros(0, np.int64)
         self.jj_inac = np.zeros(0, np.int64)
+        self.exp_inac = np.zeros((0, 5), np.int64)
         self.target_inac = torch.zeros((0, ht, wd, 2), device=dev)
         self.weight_inac = torch.zeros((0, ht, wd, 2), device=dev)
         self.host_waits = 0  # distance-matrix reads that waited for their copy
@@ -94,12 +107,16 @@ class FactorGraph:
     def _t(self, a):
         return torch.as_tensor(np.asarray(a), dtype=torch.long, device=self.device)
 
-    def _corr_state(self, ii_t, jj_t):
-        """Correlation state of the edges ``ii_t → jj_t``: packed features
-        in alt mode, else the volume pyramid (and, for int8, the quantised
-        levels with their per-edge scales)."""
-        f1 = self.buffer.fmaps[ii_t].float()
-        f2 = self.buffer.fmaps[jj_t].float()
+    def _rows(self, edges):
+        """State rows of frame edges ``edges``: V per edge, edge-major."""
+        return (np.asarray(edges, np.int64)[:, None] * self.V + np.arange(self.V)).reshape(-1)
+
+    def _corr_state(self, di_t, dj_t):
+        """Correlation state of the edges ``di_t → dj_t`` (slots): packed
+        features in alt mode, else the volume pyramid (and, for int8, the
+        quantised levels with their per-edge scales)."""
+        f1 = self.buffer.fmaps[di_t].float()
+        f2 = self.buffer.fmaps[dj_t].float()
         if self.corr_alt:
             return corr_ops.corr_feat_pack(f1, f2, CORR_LEVELS), None
         pyr = corr_ops.corr_pyramid(f1, f2, CORR_LEVELS)
@@ -114,7 +131,7 @@ class FactorGraph:
         """Add edges: dedup against active + inactive edges and earlier
         entries, optionally evict the oldest to respect ``max_factors``,
         build per-edge corr state, init target from the current
-        reprojection, weight 0, hidden state from the source frame."""
+        reprojection, weight 0, hidden state from the source slot."""
         ii = np.asarray(ii, np.int64).reshape(-1)
         jj = np.asarray(jj, np.int64).reshape(-1)
         seen = set(zip(self.ii.tolist(), self.jj.tolist())) | set(
@@ -143,17 +160,20 @@ class FactorGraph:
             return
 
         buf = self.buffer
-        ii_t, jj_t = self._t(ii), self._t(jj)
-        coords, _ = buf.reproject(ii, jj)
+        pi, qi, di, pj, qj, dj = buf.expand_edge_multiview(ii, jj)
+        exp = np.stack([pi, qi, di, pj, qj], axis=-1)
+        di_t, dj_t = self._t(di), self._t(dj)
+        coords, _ = self.buffer.reproject_exp(exp)
         self.target = torch.cat([self.target, coords])
         self.weight = torch.cat([self.weight, torch.zeros_like(coords)])
-        self.f_net = torch.cat([self.f_net, buf.nets[ii_t].float()])
+        self.f_net = torch.cat([self.f_net, buf.nets[di_t].float()])
         if self.incremental:
             parts = [[p] for p in self.corr_pyr]
             sparts = [[s] for s in self.corr_scale or []]
-            for c0 in range(0, len(ii), ADD_CHUNK):
-                sl = slice(c0, c0 + ADD_CHUNK)
-                pyr, scales = self._corr_state(ii_t[sl], jj_t[sl])
+            chunk = ADD_CHUNK * self.V
+            for c0 in range(0, len(di), chunk):
+                sl = slice(c0, c0 + chunk)
+                pyr, scales = self._corr_state(di_t[sl], dj_t[sl])
                 for part, p in zip(parts, pyr):
                     part.append(p)
                 for part, s in zip(sparts, scales or []):
@@ -164,6 +184,7 @@ class FactorGraph:
         self.ii = np.concatenate([self.ii, ii])
         self.jj = np.concatenate([self.jj, jj])
         self.age = np.concatenate([self.age, np.zeros(len(ii), np.int64)])
+        self.exp = np.concatenate([self.exp, exp])
 
     def rm_factors(self, mask, store: bool = False):
         """Drop the masked edges, optionally storing them as inactive."""
@@ -172,14 +193,17 @@ class FactorGraph:
             return
         drop = np.where(mask)[0]
         keep = np.where(~mask)[0]
+        drop_rows, keep_rows = self._rows(drop), self._rows(keep)
         if store:
-            drop_t = self._t(drop)
+            drop_t = self._t(drop_rows)
             self.ii_inac = np.concatenate([self.ii_inac, self.ii[drop]])
             self.jj_inac = np.concatenate([self.jj_inac, self.jj[drop]])
+            self.exp_inac = np.concatenate([self.exp_inac, self.exp[drop_rows]])
             self.target_inac = torch.cat([self.target_inac, self.target[drop_t]])
             self.weight_inac = torch.cat([self.weight_inac, self.weight[drop_t]])
-        keep_t = self._t(keep)
+        keep_t = self._t(keep_rows)
         self.ii, self.jj, self.age = self.ii[keep], self.jj[keep], self.age[keep]
+        self.exp = self.exp[keep_rows]
         self.target = self.target[keep_t]
         self.weight = self.weight[keep_t]
         self.f_net = self.f_net[keep_t]
@@ -187,6 +211,12 @@ class FactorGraph:
             self.corr_pyr = [p[keep_t] for p in self.corr_pyr]
             if self.corr_q:
                 self.corr_scale = [s[keep_t] for s in self.corr_scale]
+
+    def _shift_exp(self, exp, ix: int):
+        """Frames above the removed ``ix`` move down one, their slots too."""
+        for col in (0, 3):
+            exp[exp[:, col] >= ix, col] -= 1
+        exp[:, 2] = exp[:, 0] * self.V + exp[:, 1]
 
     def rm_keyframe(self, ix: int, top: Optional[int] = None):
         """Remove keyframe ``ix`` from buffer and graph, shifting indices.
@@ -197,13 +227,17 @@ class FactorGraph:
         self.ii_inac[self.ii_inac >= ix] -= 1
         self.jj_inac[self.jj_inac >= ix] -= 1
         if m.any():
-            keep_t = self._t(np.where(~m)[0])
+            keep_rows = self._rows(np.where(~m)[0])
+            keep_t = self._t(keep_rows)
             self.ii_inac, self.jj_inac = self.ii_inac[~m], self.jj_inac[~m]
+            self.exp_inac = self.exp_inac[keep_rows]
             self.target_inac = self.target_inac[keep_t]
             self.weight_inac = self.weight_inac[keep_t]
+        self._shift_exp(self.exp_inac, ix)
         m = (self.ii == ix) | (self.jj == ix)
         self.ii[self.ii >= ix] -= 1
         self.jj[self.jj >= ix] -= 1
+        self._shift_exp(self.exp, ix)
         self.rm_factors(m, store=False)
 
     # ---------------------------------------------------------- edge proposal
@@ -222,14 +256,29 @@ class FactorGraph:
         of the first ``n_frames`` frames on its way to the host; read it
         with ``add_proximity_factors(dist_token=...)``.  Entry (i, j) is
         0.5·(d(i→j, disp_i) + d(j→i, disp_j)), each direction saturating on
-        its own.  ``predict_slot``: a frame whose row is taken as the next
-        slot's initialisation (constant-velocity pose from the two frames
-        below it, their upper one's mean disparity) instead of the
-        buffer's row: the frontend submits before its step, from the state
-        before the step."""
+        its own; for a rig, each direction is the mean over the views of
+        the same-view distances.  ``predict_slot`` (single view): a frame
+        whose row is taken as the next slot's initialisation
+        (constant-velocity pose from the two frames below it, their upper
+        one's mean disparity) instead of the buffer's row: the frontend
+        submits before its step, from the state before the step."""
         buf = self.buffer
+        V = self.V
         n = buf.n_frames if n_frames is None else n_frames
         w0 = max(0, n - window) if window is not None else 0
+        k = n - w0
+        ii, jj = np.meshgrid(np.arange(k), np.arange(k), indexing="ij")
+        ii_t, jj_t = self._t(ii.reshape(-1)), self._t(jj.reshape(-1))
+        if V > 1:
+            assert predict_slot is None, "rigs submit their distances after the step"
+            poses, disps = buf.poses[w0:n], buf.disps[w0 * V:n * V]
+            d = 0.0
+            for q in range(V):
+                qv = torch.full_like(ii_t, q)
+                d = d + geom.frame_distance_mv(poses, buf.rig, disps, buf.pinhole_grid_intrinsics,
+                                               ii_t, qv, ii_t * V + qv, jj_t, qv, beta=beta)
+            d = (d / V).reshape(k, k)
+            return DistanceToken(w0, 0.5 * (d + d.T), self)
         poses, disps = buf.poses[w0:n], buf.disps[w0:n]
         if predict_slot is not None and 2 <= predict_slot - w0 < n - w0:
             s = predict_slot - w0
@@ -238,9 +287,6 @@ class FactorGraph:
             w = lie.se3_log(lie.se3_mul(p2, lie.se3_inv(p1))) * 0.5
             poses[s] = lie.se3_mul(lie.se3_exp(w), p2)
             disps[s] = disps[s - 1].mean()
-        k = n - w0
-        ii, jj = np.meshgrid(np.arange(k), np.arange(k), indexing="ij")
-        ii_t, jj_t = self._t(ii.reshape(-1)), self._t(jj.reshape(-1))
         d = geom.frame_distance(poses, disps, buf.pinhole_grid_intrinsics, ii_t, jj_t,
                                 di=ii_t, beta=beta).reshape(k, k)
         return DistanceToken(w0, 0.5 * (d + d.T), self)
@@ -307,17 +353,18 @@ class FactorGraph:
 
     # ------------------------------------------------------------- GRU + BA
 
-    def _run_update_fn(self, f_net, coords1, target_prev, ii, jj, corr_feat):
+    def _run_update_fn(self, f_net, coords1, target_prev, exp, corr_feat):
         """Motion features → update_fn → (net, target, weight, eta)."""
         buf = self.buffer
         grid = geom.coords_grid(self.ht, self.wd, self.device)
         motn = torch.cat([coords1 - grid, target_prev - coords1], dim=-1).clamp(-64.0, 64.0)
-        ii_t, jj_t = self._t(ii), self._t(jj)
-        inp = buf.inps[ii_t].float()
+        di_t = self._t(exp[:, 2])
+        dj_t = self._t(exp[:, 3] * self.V + exp[:, 4])
+        inp = buf.inps[di_t].float()
         net, delta, weight, eta = self.update_fn(
-            f_net, inp, corr_feat, motn, ii_t, jj_t, buf.n_frames
+            f_net, inp, corr_feat, motn, di_t, dj_t, buf.n_frames * self.V
         )
-        weight = torch.where(buf.masks[ii_t][..., None], torch.zeros_like(weight), weight)
+        weight = torch.where(buf.masks[di_t][..., None], torch.zeros_like(weight), weight)
         return net, coords1 + delta, weight, eta
 
     def update(self, t0: Optional[int] = None, t1: Optional[int] = None,
@@ -332,13 +379,13 @@ class FactorGraph:
             t0 = int(max(1, self.ii.min() + 1))
         if t1 is None:
             t1 = int(max(self.ii.max(), self.jj.max()) + 1)
-        coords1, _ = self.buffer.reproject(self.ii, self.jj)
+        coords1, _ = self.buffer.reproject_exp(self.exp)
         corr_feat = corr_ops.corr_lookup_pyramid(self.corr_pyr, coords1, CORR_RADIUS,
                                                  scales=self.corr_scale)
         self.f_net, self.target, self.weight, eta = self._run_update_fn(
-            self.f_net, coords1, self.target, self.ii, self.jj, corr_feat
+            self.f_net, coords1, self.target, self.exp, corr_feat
         )
-        src = self._t(np.unique(self.ii))
+        src = self._t(np.unique(self.exp[:, 2]))
         self.damping[src] = eta[src]
         self._bundle_adjustment(
             t0, t1, itrs, use_inactive=use_inactive, motion_only=motion_only,
@@ -352,7 +399,7 @@ class FactorGraph:
         """Σ w·(reproj − target)² over the active edges."""
         if self.n_edges == 0:
             return 0.0
-        coords, valid = self.buffer.reproject(self.ii, self.jj)
+        coords, valid = self.buffer.reproject_exp(self.exp)
         r = coords - self.target
         w = self.weight * valid[..., None]
         return float(torch.sum(w * r * r))
@@ -367,8 +414,8 @@ class FactorGraph:
             return
         t = self.buffer.n_frames
         # chunks of source-frame ranges of 8, soft-capped at BACKEND_CHUNK
-        # edges and split only at frame boundaries, so each frame's damping
-        # comes from exactly one chunk
+        # frame edges and split only at frame boundaries, so each slot's
+        # damping comes from exactly one chunk
         frame_chunks = []
         for i0 in range(0, t, 8):
             cur: list = []
@@ -377,29 +424,29 @@ class FactorGraph:
                 if not len(sel_f):
                     continue
                 if cur and len(cur) + len(sel_f) > BACKEND_CHUNK:
-                    frame_chunks.append(np.asarray(cur))
+                    frame_chunks.append(self._rows(cur))
                     cur = []
                 cur.extend(sel_f.tolist())
             if cur:
-                frame_chunks.append(np.asarray(cur))
+                frame_chunks.append(self._rows(cur))
 
-        buf = self.buffer
         for _ in range(steps):
-            coords1, _ = buf.reproject(self.ii, self.jj)
+            coords1, _ = self.buffer.reproject_exp(self.exp)
             for sel in frame_chunks:
                 sel_t = self._t(sel)
-                ii, jj = self.ii[sel], self.jj[sel]
-                pyr, _ = self._corr_state(self._t(ii), self._t(jj))
+                exp = self.exp[sel]
+                pyr, _ = self._corr_state(self._t(exp[:, 2]),
+                                          self._t(exp[:, 3] * self.V + exp[:, 4]))
                 c1 = coords1[sel_t]
                 corr_feat = corr_ops.corr_lookup_pyramid(pyr, c1, CORR_RADIUS)
                 del pyr
                 net, target, weight, eta = self._run_update_fn(
-                    self.f_net[sel_t], c1, self.target[sel_t], ii, jj, corr_feat
+                    self.f_net[sel_t], c1, self.target[sel_t], exp, corr_feat
                 )
                 self.f_net[sel_t] = net
                 self.target[sel_t] = target
                 self.weight[sel_t] = weight
-                src = self._t(np.unique(ii))
+                src = self._t(np.unique(exp[:, 2]))
                 self.damping[src] = eta[src]
             self._bundle_adjustment(
                 1, t, itrs, use_inactive=False, motion_only=False, fixed_motion=False,
@@ -414,51 +461,66 @@ class FactorGraph:
         """Dense BA over [selected inactive ++ active] edges and all
         ``n_frames`` keyframes (reference buffer.bundle_adjustment)."""
         buf = self.buffer
-        N = buf.n_frames
+        N, V = buf.n_frames, self.V
+        ND = N * V
         P = self.ht * self.wd
         if use_inactive:
             sel = np.where((self.ii_inac >= t0 - 3) & (self.jj_inac >= t0 - 3))[0]
         else:
             sel = np.zeros(0, np.int64)
-        sel_t = self._t(sel)
-        ii = np.concatenate([self.ii_inac[sel], self.ii])
-        jj = np.concatenate([self.jj_inac[sel], self.jj])
-        E = len(ii)
+        sel_rows = self._rows(sel)
+        sel_t = self._t(sel_rows)
+        exp = np.concatenate([self.exp_inac[sel_rows], self.exp])
+        E = len(exp)
         target = torch.cat([self.target_inac[sel_t], self.target]).reshape(E, P, 2)
         weight = torch.cat([self.weight_inac[sel_t], self.weight]).reshape(E, P, 2)
         weight = weight * WEIGHT_DENSE_DISP
 
-        fill_ct = np.bincount(ii, minlength=N)
-        slot_edge = ba.build_edge_slots(ii, N, max(int(fill_ct.max()), 1))
+        di = exp[:, 2]
+        fill_ct = np.bincount(di, minlength=ND)
+        slot_edge = ba.build_edge_slots(di, ND, max(int(fill_ct.max()), 1))
         idx = np.arange(N)
         pose_mask = (idx >= t0) & (idx < t1) & (not fixed_motion)
         has_edge = fill_ct > 0
+        slot_frame = np.arange(ND) // V
         if motion_only:
-            disp_mask = np.zeros(N, bool)
+            disp_mask = np.zeros(ND, bool)
         elif limited_disp:
-            disp_mask = has_edge & (idx >= t0) & (idx < t1)
+            disp_mask = has_edge & (slot_frame >= t0) & (slot_frame < t1)
         else:
             disp_mask = has_edge
 
-        sens = buf.disps_sens[:N].reshape(N, P)
+        sens = buf.disps_sens[:ND].reshape(ND, P)
         sens_mask = (sens.sum(1) > 0) & (not motion_only)
+        optimize_rig = self.optimize_rig and not motion_only
         cfg = ba.BAConfig(
             camera_type=buf.camera_type, ht=self.ht, wd=self.wd,
             optimize_intrinsics=optimize_intrinsics,
             alpha=buf.dense_disp_alpha, max_edges_per_frame=slot_edge.shape[1],
+            n_views=V, optimize_rig=optimize_rig,
         )
-        poses, disps, intr = ba.ba_solve(
-            cfg, buf.poses[:N], buf.disps[:N].reshape(N, P), buf.intrinsics,
-            target, weight, self._t(ii), self._t(jj),
+        common = (
             torch.ones(E, dtype=torch.bool, device=self.device),
             self._t(slot_edge),
             torch.as_tensor(pose_mask, device=self.device),
             torch.as_tensor(disp_mask, device=self.device),
-            0.2 * self.damping[:N].reshape(N, P) + 1e-7,
+            0.2 * self.damping[:ND].reshape(ND, P) + 1e-7,
             sens, sens_mask.float(), itrs, pose_damping, pose_ep,
         )
+        if V == 1:
+            poses, disps, intr = ba.ba_solve(
+                cfg, buf.poses[:N], buf.disps[:N].reshape(N, P), buf.intrinsics,
+                target, weight, self._t(exp[:, 0]), self._t(exp[:, 3]), *common,
+            )
+        else:
+            poses, rig, disps, intr = ba.ba_solve_mv(
+                cfg, buf.poses[:N], buf.rig, buf.disps[:ND].reshape(ND, P), buf.intrinsics,
+                target, weight, *(self._t(exp[:, c]) for c in range(5)), *common,
+            )
+            if optimize_rig:
+                buf.rig = rig
         buf.poses[:N] = poses
-        buf.disps[:N] = disps.reshape(N, self.ht, self.wd)
+        buf.disps[:ND] = disps.reshape(ND, self.ht, self.wd)
         if optimize_intrinsics:
             buf.intrinsics = intr
 

@@ -27,6 +27,10 @@ Two orderings, as in the JAX package:
   when the update function is marked ``host_only`` (an oracle that reads
   host state), as the JAX package takes it for update functions it cannot
   trace.
+
+A rig caps ``keyframe_spec_depth`` at 1 (a late removal is single-view
+only) and submits its distance matrix after the step; a new slot's
+disparity is the mean over the previous frame's V slots.
 """
 
 from __future__ import annotations
@@ -61,6 +65,9 @@ class SLAMFrontend:
         self.has_init_pose = c.get("has_init_pose", False)
         self.spec_depth = c.get("keyframe_spec_depth", 2)
         self.prox_spec = c.get("proximity_spec", True)
+        if buffer.n_views > 1:
+            self.spec_depth = min(self.spec_depth, 1)
+            self.prox_spec = False
         self.speculative = not getattr(update_fn, "host_only", False)
         self._dist_token = None
         # (removal distance, t1 when decided), oldest first, at most 2
@@ -82,7 +89,16 @@ class SLAMFrontend:
             p1, p2 = buf.poses[t1 - 2], buf.poses[t1 - 1]
             w = lie.se3_log(lie.se3_mul(p2, lie.se3_inv(p1))) * 0.5
             buf.poses[t1] = lie.se3_mul(lie.se3_exp(w), p2)
-        buf.disps[t1] = buf.disps[t1 - 1].mean()
+        self._disp_init(t1 - 1, t1)
+
+    def _disp_init(self, lo: int, t1: int):
+        """Slots of frame ``t1`` ← the mean disparity of frames [lo, t1)."""
+        V = self.buffer.n_views
+        disps = self.buffer.disps
+        if V == 1:
+            disps[t1] = (disps[lo] if lo == t1 - 1 else disps[lo:t1]).mean()
+        else:
+            disps[t1 * V:(t1 + 1) * V] = disps[lo * V:t1 * V].mean()
 
     def _removal_distance(self) -> float:
         d = self.buffer.frame_distance([self.t1 - 3], [self.t1 - 2], beta=self.beta)
@@ -209,7 +225,7 @@ class SLAMFrontend:
             p1, p2 = buf.poses[t1 - 2], buf.poses[t1 - 1]
             w = lie.se3_log(lie.se3_mul(p2, lie.se3_inv(p1))) * 0.5
             buf.poses[t1] = lie.se3_mul(lie.se3_exp(w), p2)
-        buf.disps[t1] = buf.disps[t1 - 4: t1].mean()
+        self._disp_init(t1 - 4, t1)
         self.is_initialized = True
         g.rm_factors(g.ii < self.warmup - 4, store=True)
         self._submit_distance()

@@ -1,13 +1,15 @@
 """Pass-2 interpolation of non-keyframe poses (port of
-``vipe_tpu/slam/inner_filler.py``, single view).
+``vipe_tpu/slam/inner_filler.py``).
 
 Non-keyframes are appended after ``start_idx``; each chunk gets a
 constant-velocity SE3 initialisation between its bracketing keyframes,
 then 10 motion-only GRU/BA rounds against those two keyframes.  The rounds
 run as the JAX package's ``_compute_loop`` does them; the correlation
-state follows its ``_compute_fused``, the path the JAX package takes with
-a real update network: ``corr_mode`` from the config (packed features in
-alt mode), bf16 volumes whatever ``corr_dtype`` says.
+state follows the path the JAX package takes with a real update network:
+for one view its ``_compute_fused``, ``corr_mode`` from the config (packed
+features in alt mode) and bf16 volumes whatever ``corr_dtype`` says; for a
+rig its ``_compute_loop``, volumes in ``corr_dtype`` whatever ``corr_mode``
+says.  A rig fills its V slots of each frame.
 """
 
 from __future__ import annotations
@@ -64,10 +66,12 @@ class InnerFiller:
         w = vel * torch.as_tensor((m_t - n_t[t0]).astype(np.float32), device=dev)[:, None]
         buf.poses[s:total] = lie.se3_mul(lie.se3_exp(w), poses_kf[t0_t])
 
-        graph = FactorGraph(
-            buf, self.update_fn, max_factors=4 * (total - s), incremental=True,
-            corr_mode=self.config.get("corr_mode", "volume"),
-        )
+        if buf.n_views == 1:
+            corr = {"corr_mode": self.config.get("corr_mode", "volume")}
+        else:
+            corr = {"corr_dtype": self.config.get("corr_dtype", "bf16")}
+        graph = FactorGraph(buf, self.update_fn, max_factors=4 * (total - s),
+                            incremental=True, **corr)
         infill = np.arange(s, total)
         graph.add_factors(t0, infill)
         graph.add_factors(t1, infill)

@@ -64,11 +64,12 @@ class SLAMMap:
 
 @dataclass
 class SLAMOutput:
-    trajectory: np.ndarray  # (T, 7) camera-to-world SE3
-    intrinsics: np.ndarray  # (D,) full-res intrinsics
+    trajectory: np.ndarray  # (T, 7) camera-to-world SE3 (of the rig base for a rig)
+    intrinsics: np.ndarray  # (D,) full-res intrinsics; (V, D) for a rig
     camera_type: cam.CameraType
     slam_map: Optional[SLAMMap] = None
     ba_residual: float = 0.0
     keyframes: Optional[np.ndarray] = None  # (K,) frame index per keyframe
     # frontend counts: keyframes removed, removed late, waits on deferred reads
     frontend_stats: Optional[dict] = None
+    rig: Optional[np.ndarray] = None  # (V, 7) camera-to-rig SE3 of a rig, refined

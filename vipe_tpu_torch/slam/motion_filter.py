@@ -3,6 +3,8 @@ synchronous ``check`` path).
 
 Every frame is encoded; one ConvGRU update against the last keyframe's
 features gives a flow delta whose mean magnitude gates keyframe creation.
+A rig's frame is its (V, h, w, 3) stack of views, scored view by view
+against the same views of the keyframe; the least of the V scores gates.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ from ..ops import geom
 
 @dataclasses.dataclass
 class _Token:
-    image: torch.Tensor            # (1, h, w, 3) uint8
-    fmap: torch.Tensor             # (1, ht, wd, 128)
-    mask: Optional[torch.Tensor]   # (1, ht, wd) bool, True = invalid
+    image: torch.Tensor            # (V, h, w, 3) uint8
+    fmap: torch.Tensor             # (V, ht, wd, 128)
+    mask: Optional[torch.Tensor]   # (V, ht, wd) bool, True = invalid
     first: bool = False
 
 
@@ -33,6 +35,7 @@ class MotionFilter:
         self.update_fn = update_fn
         self.thresh = thresh
         self.initialized = False
+        self.stacked = False  # rig frames: keep the V axis of the features
         self.f_fmap = self.f_net = self.f_inp = self.f_mask = None
 
     @property
@@ -69,9 +72,12 @@ class MotionFilter:
         self.f_mask = token.mask
 
     def submit(self, image, mask=None) -> _Token:
-        """Encode one frame: ``image`` (h, w, 3) uint8, ``mask`` (ht, wd)."""
-        image = image[None]
-        mask = None if mask is None else mask[None]
+        """Encode one frame: ``image`` (h, w, 3) uint8, ``mask`` (ht, wd),
+        or a rig's (V, h, w, 3) and (V, ht, wd)."""
+        self.stacked = image.dim() == 4
+        if not self.stacked:
+            image = image[None]
+            mask = None if mask is None else mask[None]
         tok = _Token(image, self.encode_features(image), mask)
         if not self.initialized:
             self.initialized = True
@@ -96,4 +102,6 @@ class MotionFilter:
     @property
     def last_keyframe_features(self):
         """(fmap, net, inp) of the current keyframe reference."""
+        if self.stacked:
+            return self.f_fmap, self.f_net, self.f_inp
         return self.f_fmap[0], self.f_net[0], self.f_inp[0]

@@ -12,6 +12,11 @@ Besides the pinhole stream with no priors, a run takes MEI and panorama
 cameras, per-frame validity masks, streams that give poses (the frontend
 then keeps them fixed), a keyframe depth prior (``metric_depth``, built by
 the pipeline from ``slam.keyframe_depth``) and a fixed keyframe stride.
+
+A rig (a ``MultiviewVideoList``) runs V synchronised views of equal size
+and length as one system: each frame is the stack of its V views, the
+trajectory is the rig base's, and the output carries the (refined) rig and
+(V, D) intrinsics.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch.nn.functional as F
 
 from ..ops import cameras as cam
 from ..ops import lie
-from ..streams.base import FrameAttribute, ProcessedVideoStream, StreamProcessor, VideoFrame
+from ..streams.base import (FrameAttribute, MultiviewVideoList, ProcessedVideoStream,
+                            StreamProcessor, VideoFrame)
 from ..utils import profiling
 from ..utils.device import resolve_device
 from .backend import SLAMBackend
@@ -134,37 +140,76 @@ class SLAMSystem:
         self.encode_context = encode_context
         self.metric_depth = metric_depth
 
-    def _upload(self, frame: VideoFrame) -> torch.Tensor:
-        rgb = (np.clip(frame.rgb, 0.0, 1.0) * 255).astype(np.uint8)
-        return torch.from_numpy(rgb).to(self.device)
+    def _upload(self, frames) -> torch.Tensor:
+        """A frame's views → (h, w, 3) uint8, or (V, h, w, 3) for a rig."""
+        rgb = np.stack([(np.clip(f.rgb, 0.0, 1.0) * 255).astype(np.uint8) for f in frames])
+        rgb = torch.from_numpy(rgb).to(self.device)
+        return rgb[0] if len(frames) == 1 else rgb
 
-    def _mask(self, frame: VideoFrame, buffer: GraphBuffer) -> Optional[torch.Tensor]:
-        if frame.mask is None:
+    def _mask(self, frames, buffer: GraphBuffer) -> Optional[torch.Tensor]:
+        """The grid's invalid mask, (ht, wd) or (V, ht, wd); a view without
+        a mask is all valid."""
+        if all(f.mask is None for f in frames):
             return None
-        return mask_grid(frame.mask, buffer.ht, buffer.wd).to(self.device)
+        masks = torch.stack([
+            mask_grid(np.ones(f.rgb.shape[:2], bool) if f.mask is None else f.mask,
+                      buffer.ht, buffer.wd) for f in frames]).to(self.device)
+        return masks[0] if len(frames) == 1 else masks
 
     @staticmethod
-    def _base_pose(frame: VideoFrame) -> Optional[np.ndarray]:
-        """The world-to-camera pose of a frame that gives its pose."""
-        if frame.pose is None:
+    def _frame_meta(frames):
+        """(metric_depth, intrinsics) of a frame's views, stacked for a
+        rig; None unless every view has it."""
+        if len(frames) == 1:
+            return frames[0].metric_depth, frames[0].intrinsics
+        depth, intr = ([getattr(f, a) for f in frames] for a in ("metric_depth", "intrinsics"))
+        return (None if any(d is None for d in depth) else np.stack(depth),
+                None if any(i is None for i in intr) else np.stack(intr))
+
+    @staticmethod
+    def _base_pose(frames, buffer: GraphBuffer) -> Optional[np.ndarray]:
+        """The world-to-camera pose of the rig base of a frame that gives its
+        (view 0's) pose: ``rig[0]·pose⁻¹``."""
+        if frames[0].pose is None:
             return None
-        return lie.se3_inv(torch.tensor(np.asarray(frame.pose), dtype=torch.float32)).numpy()
+        w2c = lie.se3_inv(torch.tensor(np.asarray(frames[0].pose), dtype=torch.float32))
+        if len(frames) > 1:
+            w2c = lie.se3_mul(buffer.rig[0].cpu(), w2c)
+        return w2c.numpy()
+
+    def _encode_context(self, rgb):
+        net, inp = self.encode_context(rgb if rgb.dim() == 4 else rgb[None])
+        return (net, inp) if rgb.dim() == 4 else (net[0], inp[0])
 
     @torch.no_grad()
     def run(self, video_stream, camera_type: cam.CameraType = cam.CameraType.PINHOLE
             ) -> SLAMOutput:
+        """``video_stream``: one stream, or a rig's ``MultiviewVideoList``."""
         c = self.config
-        resizer = StandardResizeStreamProcessor(c.get("resize_area", 384 * 512))
-        stream = ProcessedVideoStream(video_stream, [resizer])
+        rig = None
+        if isinstance(video_stream, MultiviewVideoList):
+            raw, rig = list(video_stream), video_stream.rig
+        else:
+            raw = [video_stream]
+        V = len(raw)
+        if V > 1 and self.metric_depth is not None:
+            raise NotImplementedError("slam.keyframe_depth with a rig is not ported yet")
+        resizers = [StandardResizeStreamProcessor(c.get("resize_area", 384 * 512))
+                    for _ in raw]
+        streams = [ProcessedVideoStream(s, [r]) for s, r in zip(raw, resizers)]
+        stream = streams[0]
         c = {**c, "has_init_pose": FrameAttribute.POSE in stream.attributes()}
         h, w = stream.frame_size()
         total = len(stream)
+        for s in streams[1:]:
+            if s.frame_size() != (h, w) or len(s) != total:
+                raise ValueError("the views of a rig need equal frame sizes and lengths")
 
         buffer = GraphBuffer(
             height=h, width=w, buffer_size=c.get("buffer", 1024),
             init_disp=c.get("init_disp", 1.0), camera_type=camera_type,
             dense_disp_alpha=c.get("ba", {}).get("dense_disp_alpha", 0.001),
-            device=self.device,
+            device=self.device, n_views=V, rig=rig,
         )
         motion_filter = MotionFilter(self.encode_features, self.encode_context,
                                      self.update_fn, thresh=c.get("filter_thresh", 2.4))
@@ -176,9 +221,9 @@ class SLAMSystem:
 
         # ----------------------------------------------------------- pass 1
         with profiling.stage("slam_pass1"):
-            for frame_idx, frame in enumerate(stream):
-                rgb = self._upload(frame)
-                mask = self._mask(frame, buffer)
+            for frame_idx, frames in enumerate(zip(*streams)):
+                rgb = self._upload(frames)
+                mask = self._mask(frames, buffer)
                 token = motion_filter.submit(rgb, mask)
                 is_kf = motion_filter.resolve(token)
                 if is_kf:
@@ -186,18 +231,19 @@ class SLAMSystem:
                 elif frame_idx == total - 1 or (kf_stride and frame_idx % kf_stride == 0):
                     # the last frame and every stride-th one are keyframes
                     is_kf = True
-                    fmap = token.fmap[0]
-                    net, inp = (x[0] for x in self.encode_context(rgb[None]))
+                    fmap = token.fmap if V > 1 else token.fmap[0]
+                    net, inp = self._encode_context(rgb)
                 if is_kf:
                     # apply the removal decisions still pending, keeping the
                     # newest one pending at depth 2
                     frontend.resolve_pending(keep_newest=True)
+                    metric_depth, intrinsics = self._frame_meta(frames)
                     buffer.append_keyframe(
                         frame_idx, rgb, fmap, net, inp, mask=mask,
-                        metric_depth=frame.metric_depth, intrinsics=frame.intrinsics,
-                        pose=self._base_pose(frame),
+                        metric_depth=metric_depth, intrinsics=intrinsics,
+                        pose=self._base_pose(frames, buffer),
                     )
-                    if self.metric_depth is not None and frame.metric_depth is None:
+                    if self.metric_depth is not None and metric_depth is None:
                         buffer.update_disps_sens(self.metric_depth,
                                                  frame_idx=buffer.n_frames - 1)
                 frontend.run()
@@ -223,26 +269,28 @@ class SLAMSystem:
             batch = []
 
             def flush():
-                new = [b for b in batch if b[0] not in kf_slot]
+                new = [b[2] for b in batch if b[0] not in kf_slot]
                 fmaps = None
                 if new:
-                    fmaps = self.encode_features(torch.stack([b[2] for b in new]))
+                    # a rig's views go in frame-major: frame k's are [k·V, (k+1)·V)
+                    fmaps = self.encode_features(torch.stack(new) if V == 1 else torch.cat(new))
                 k = 0
-                for frame_idx, frame, rgb in batch:
+                for frame_idx, frames, rgb in batch:
                     if frame_idx in kf_slot:
                         buffer.append_keyframe_copy(kf_slot[frame_idx], frame_idx)
                     else:
-                        buffer.append_keyframe(frame_idx, rgb, fmaps[k], None, None,
-                                               mask=self._mask(frame, buffer),
-                                               metric_depth=frame.metric_depth)
+                        fmap = fmaps[k] if V == 1 else fmaps[k * V:(k + 1) * V]
+                        buffer.append_keyframe(frame_idx, rgb, fmap, None, None,
+                                               mask=self._mask(frames, buffer),
+                                               metric_depth=self._frame_meta(frames)[0])
                         k += 1
                     if filler.check() or frame_idx == total - 1:
                         filler.compute()
                 batch.clear()
 
-            for frame_idx, frame in enumerate(stream):
-                rgb = None if frame_idx in kf_slot else self._upload(frame)
-                batch.append((frame_idx, frame, rgb))
+            for frame_idx, frames in enumerate(zip(*streams)):
+                rgb = None if frame_idx in kf_slot else self._upload(frames)
+                batch.append((frame_idx, frames, rgb))
                 if len(batch) == ENC_BATCH:
                     flush()
             flush()
@@ -256,7 +304,9 @@ class SLAMSystem:
             # equirect scales are the SLAM grid's own parameterisation
             intr_full = np.zeros(buffer.intrinsics.shape, np.float32)
         else:
-            intr_full = resizer.recover_intrinsics(buffer.intrinsics.cpu().numpy())
+            intr = buffer.intrinsics.cpu().numpy().reshape(V, -1)
+            intr_full = np.stack([r.recover_intrinsics(i) for r, i in zip(resizers, intr)])
+            intr_full = intr_full[0] if V == 1 else intr_full
         trajectory = lie.se3_inv(torch.as_tensor(filled.poses)).numpy()
         return SLAMOutput(
             trajectory=trajectory, intrinsics=intr_full, camera_type=camera_type,
@@ -264,4 +314,5 @@ class SLAMSystem:
             frontend_stats={"n_removals": frontend.n_removals,
                             "late_removals": frontend.late_removals,
                             "host_waits": frontend.graph.host_waits},
+            rig=buffer.rig.cpu().numpy() if V > 1 else None,
         )

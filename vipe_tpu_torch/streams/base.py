@@ -10,6 +10,7 @@ stream layer needs no OpenCV.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from enum import Enum
 from typing import Iterator, List, Optional, Sequence
 
@@ -253,8 +254,46 @@ class AssignAttributesProcessor(StreamProcessor):
         return frame
 
 
+class MultiviewVideoList:
+    """The synchronised per-view streams of one rig capture.  ``rig``:
+    (V, 7) camera-to-rig SE3 (xyz + quaternion) per view; view v's camera
+    pose is the frame's rig pose composed with ``rig[v]``."""
+
+    def __init__(self, name: str, video_streams: Sequence[VideoStream], rig):
+        rig = np.asarray(rig, np.float32)
+        if rig.ndim == 1:
+            rig = rig[None]
+        if rig.shape != (len(video_streams), 7):
+            raise ValueError(f"rig must be ({len(video_streams)}, 7), got {rig.shape}")
+        self._name = name
+        self._streams = list(video_streams)
+        self.rig = rig
+        self._len = len(self._streams[0])
+        if any(len(vs) != self._len for vs in self._streams):
+            raise ValueError("the views of a rig need equal lengths")
+
+    def __len__(self):
+        return len(self._streams)
+
+    def __iter__(self):
+        return iter(self._streams)
+
+    def __getitem__(self, idx: int) -> VideoStream:
+        return self._streams[idx]
+
+    def name(self) -> str:
+        return self._name
+
+    def num_frames(self) -> int:
+        return self._len
+
+    def cache(self, *args, **kwargs) -> "MultiviewVideoList":
+        """Itself: the rig pipeline caches each view on its own."""
+        return self
+
+
 class StreamList:
-    """Multi-video collection."""
+    """Multi-video collection, and the factory of the ``streams`` config."""
 
     def __init__(self, streams: Sequence[VideoStream]):
         self.streams = list(streams)
@@ -264,3 +303,11 @@ class StreamList:
 
     def __iter__(self):
         return iter(self.streams)
+
+    @staticmethod
+    def make(config: dict) -> "StreamList":
+        """The class named by the dotted ``instance`` (a
+        ``vipe_tpu_torch.streams...`` path), built with the other keys."""
+        module, cls = config["instance"].rsplit(".", 1)
+        klass = getattr(importlib.import_module(module), cls)
+        return klass(**{k: v for k, v in config.items() if k != "instance"})

@@ -8,7 +8,7 @@ from typing import Optional
 
 import numpy as np
 
-from .base import FrameAttribute, StreamList, VideoFrame, VideoStream
+from .base import FrameAttribute, MultiviewVideoList, StreamList, VideoFrame, VideoStream
 
 
 class RawMp4Stream(VideoStream):
@@ -70,3 +70,23 @@ class RawMp4StreamList(StreamList):
         p = pathlib.Path(base_path)
         files = sorted(p.glob("*.mp4")) if p.is_dir() else [p]
         super().__init__([RawMp4Stream(f, seek_range) for f in files])
+
+
+class MultiviewMp4StreamList(StreamList):
+    """One rig capture from per-view mp4s, as a list holding one
+    ``MultiviewVideoList``.  ``videos``: the views' files; ``rig``: a
+    (V, 7) camera-to-rig array as a ``.npy`` path or inline, identity for
+    every view when absent; ``name``: the capture's name (the first
+    video's stem when absent)."""
+
+    def __init__(self, videos, rig=None, name=None, seek_range=None, **_):
+        streams = [RawMp4Stream(pathlib.Path(v), seek_range) for v in videos]
+        if rig is None:
+            r = np.zeros((len(streams), 7), np.float32)
+            r[:, 6] = 1.0
+        elif isinstance(rig, (str, pathlib.Path)):
+            r = np.load(rig).astype(np.float32)
+        else:
+            r = np.asarray(rig, np.float32)
+        name = name or pathlib.Path(videos[0]).stem
+        super().__init__([MultiviewVideoList(name, streams, r)])
