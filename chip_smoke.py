@@ -25,13 +25,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the MEI and the panorama camera, and through a 2-view rig (the scene
    of ``tests/test_multiview.py``: unaligned ATE under 0.05, the rig's
    view 0 at identity);
-6. drives six main paths, each a seeded synthetic 720p stream through
+6. drives seven main paths, each a seeded synthetic 720p stream through
    ``DefaultAnnotationPipeline`` on ``cuda`` (random DroidNet weights from a
    seed), with the kernels' launch counts set to 0 just before and read
    just after: the default (volume, bf16, speculative keyframe ordering),
    ``slam.corr_mode: alt``, ``slam.corr_dtype: int8``, the default again,
    the reference ordering (``keyframe_spec_depth: 1``, ``proximity_spec:
-   false``), and an MEI camera with the stream's own intrinsics
+   false``), and twice an MEI camera with the stream's own intrinsics
    (``init.intrinsics: gt``), masks with an invalid band and the constant
    keyframe depth prior; prints frames, keyframes, removals (late ones
    too), waits on deferred reads, wall seconds, fps, peak memory (overall
@@ -43,12 +43,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``MultiviewVideoList`` through the pipeline, volume (K1) and
    ``corr_mode: alt`` (K2), each frame edge expanded into one edge per
    view; prints time steps and view-frames per second besides;
-8. times K1 (volume runs) and K2 (alt runs) on the coords captured in the
+8. holds the two volume runs and the two MEI runs to each other: equal
+   keyframes, removals and K1 launches, bit-equal trajectories and
+   intrinsics;
+9. GeoCalib: fits the LM on the card to exact up and latitude fields at
+   320×544 (pinhole over three frames, simple_mei with k1) and holds it to
+   ground truth; holds ``GeoCalibNet`` (seeded weights) on the card to
+   the same module on the CPU and times its forward; drives the main path
+   with ``init.intrinsics: geocalib`` (volume), its threshold calibrated
+   on the GeoCalib-stamped stream, and checks that every frame carries
+   the GeoCalib result; prints the stage's host seconds and peak;
+10. times K1 (volume runs) and K2 (alt runs) on the coords captured in the
    single-view and the rig runs, with seeded features of the same shapes,
    warm and with a cold L2 cache, and holds both against their plain
    versions on a 720p rig edge set with cross-view edges (the main path
    proposes none), in volume/bf16, volume/int8 and alt;
-9. prints the ``kernels`` JSON line and, last, the ``ok`` JSON line.
+11. prints the ``kernels`` JSON line (K1's launches on the GeoCalib path
+    too) and, last, the ``ok`` JSON line.
 
 Kernel times come from CUDA events: the mean of back-to-back launches
 (warm L2) as ``ms``, and the median of launches each preceded by a 128 MB
@@ -62,6 +73,7 @@ directory that does not hold the ``vipe_tpu_torch`` package.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -86,6 +98,10 @@ MEI_INTRINSICS = [900.0, 900.0, MAIN_W / 2.0, MAIN_H / 2.0, 0.6]
 RIG_VIEWS = 2
 RIG_SHIFT_PX = 48  # view 1's crop of the canvas sits this far right of view 0's
 RIG_XI = [0.12, 0.0, 0.0, 0.0, 0.1, 0.0]  # view 1: 0.12 m right, yawed 0.1 rad
+# GeoCalib's inference size for a 720p frame: short side 320, width cropped
+# to a multiple of 32
+GEOCALIB_H, GEOCALIB_W = 320, 544
+GEOCALIB_NET_TOL = 1e-4  # card against CPU, both IEEE f32 (no TF32)
 
 
 def _require_environment():
@@ -1035,11 +1051,152 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
         "launches": launches,
         "stages_host_s": stages,
         "intrinsics": np.asarray(slam_out.intrinsics).tolist(),
+        # bits of the results, to hold two runs of one path to each other
+        "intrinsics_hex": [float(v).hex() for v in np.asarray(out.intrinsics).ravel()],
+        "trajectory_sha1": hashlib.sha1(np.ascontiguousarray(out.trajectory).tobytes()).hexdigest(),
         **({"rig": np.asarray(slam_out.rig).tolist()} if rig else {}),
         "ba_residual": float(out.ba_residual),
         # frontend: keyframes removed, removed late, waits on deferred reads
         **slam_out.frontend_stats,
     }, captured
+
+
+# ------------------------------------------------------------------ GeoCalib
+
+
+def geocalib_lm_phase():
+    """The LM fit on the card, from exact up and latitude fields that the
+    port's ``fields`` make at 320×544 (focal 400 px): pinhole, three frames
+    sharing the focal (frame 0 at roll 0.1, pitch -0.15), and simple_mei
+    with k1 0.35 from one frame.  The focal must come back within 2 % (5 %
+    for simple_mei), roll and pitch within 0.01 (0.02), k1 within 0.05, as
+    ``tests/test_geocalib.py`` asks of the JAX package."""
+    import torch
+
+    from vipe_tpu_torch.priors.geocalib import calibrate_from_fields, latitude_field, up_field
+
+    dev = torch.device("cuda")
+    h, w, focal = GEOCALIB_H, GEOCALIB_W, 400.0
+    out = {}
+    for model, rolls, pitches, k1, f_tol, rp_tol in (
+            ("pinhole", [0.1, -0.05, 0.2], [-0.15, 0.1, 0.0], None, 0.02, 0.01),
+            ("simple_mei", [0.1], [-0.15], 0.35, 0.05, 0.02)):
+        roll, pitch = torch.tensor(rolls, device=dev), torch.tensor(pitches, device=dev)
+        f_t = torch.tensor(focal, device=dev)
+        up = up_field(h, w, f_t, roll, pitch, k1=k1, model=model)
+        lat = latitude_field(h, w, f_t, roll, pitch, k1=k1, model=model)
+        times = []
+        for _ in range(2):  # first call, then warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = calibrate_from_fields(up, lat, model=model)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        errs = {"focal_rel": abs(float(res.focal) - focal) / focal,
+                "roll": float((res.roll.cpu() - torch.tensor(rolls)).abs().max()),
+                "pitch": float((res.pitch.cpu() - torch.tensor(pitches)).abs().max()),
+                "k1": abs(float(res.k1) - k1) if k1 is not None else 0.0}
+        if not (errs["focal_rel"] < f_tol and errs["roll"] < rp_tol and errs["pitch"] < rp_tol
+                and errs["k1"] < 0.05):
+            raise AssertionError(f"GeoCalib LM on the card ({model}) missed ground truth: {errs}")
+        out[model] = {"frames": len(rolls), "size": [h, w], "n_iters": res.n_iters,
+                      "focal": float(res.focal), "k1": float(res.k1), "errors": errs,
+                      "first_ms": times[0], "ms": times[1]}
+    return out
+
+
+def geocalib_net_phase():
+    """``GeoCalibNet`` (seeded random weights and NMF bases) on one seeded
+    320×544 image, on the card against the same module on the CPU, both in
+    IEEE f32, within ``GEOCALIB_NET_TOL``; the card's forward timed by CUDA
+    events."""
+    import torch
+
+    from vipe_tpu_torch.priors.geocalib.network import GeoCalibNet, init_geocalib_, nmf_bases
+    from vipe_tpu_torch.utils.device import true_f32
+
+    net = init_geocalib_(GeoCalibNet(), seed=0).eval().requires_grad_(False)
+    bases = nmf_bases(torch.Generator().manual_seed(0))
+    x = torch.rand((1, 3, GEOCALIB_H, GEOCALIB_W), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), true_f32():
+        ref = net(x, bases)
+        net = net.to("cuda")
+        xg, bg = x.cuda(), bases.cuda()
+        got = net(xg, bg)
+        errs = {k: float((got[k].cpu() - ref[k]).abs().max()) for k in ref}
+        ms = _cuda_ms(lambda: net(xg, bg), 10)
+    if not max(errs.values()) <= GEOCALIB_NET_TOL:
+        raise AssertionError(f"GeoCalibNet on the card against the CPU: {errs} "
+                             f"(limit {GEOCALIB_NET_TOL})")
+    del net, xg, bg, got
+    torch.cuda.empty_cache()
+    return {"size": [GEOCALIB_H, GEOCALIB_W], "precision": "f32 convolutions and matmuls, TF32 off",
+            "max_abs_err": errs, "tol": GEOCALIB_NET_TOL, "forward_ms": ms}
+
+
+@contextlib.contextmanager
+def geocalib_spy():
+    """While active, records each ``GeoCalibIntrinsicsProcessor``'s result
+    and the intrinsics it stamps on each frame; yields the dict."""
+    from vipe_tpu_torch.pipeline.processors import GeoCalibIntrinsicsProcessor as Proc
+
+    orig_calibrate, orig_call = Proc.calibrate, Proc.__call__
+    seen = {"results": [], "stamped": []}
+
+    def calibrate(self, frames):
+        orig_calibrate(self, frames)
+        seen["results"].append(np.array(self._intr))
+
+    def call(self, frame_idx, frame):
+        frame = orig_call(self, frame_idx, frame)
+        seen["stamped"].append(np.array(frame.intrinsics))
+        return frame
+
+    Proc.calibrate, Proc.__call__ = calibrate, call
+    try:
+        yield seen
+    finally:
+        Proc.calibrate, Proc.__call__ = orig_calibrate, orig_call
+
+
+def geocalib_main_path_phase():
+    """``init.intrinsics: geocalib`` (pinhole, volume) on the seeded 32-frame
+    720p stream, the motion-filter threshold calibrated on the
+    GeoCalib-stamped stream; the stamped intrinsics must be the GeoCalib
+    result on every frame."""
+    from vipe_tpu_torch.pipeline.processors import GeoCalibIntrinsicsProcessor
+    from vipe_tpu_torch.streams.base import ProcessedVideoStream
+
+    raw = synth_stream(MAIN_FRAMES)
+    stamped = ProcessedVideoStream(raw, [GeoCalibIntrinsicsProcessor(sample_stream=raw,
+                                                                     device="cuda")])
+    thresh = calibrate_filter_thresh(stamped, MAIN_KEYFRAMES)
+    with geocalib_spy() as seen:
+        rec, captured = main_path_phase("geocalib", {}, MAIN_FRAMES, thresh, ["corr_lookup"],
+                                        init={"intrinsics": "geocalib"})
+    if len(seen["results"]) != 1 or len(seen["stamped"]) != MAIN_FRAMES or not all(
+            np.array_equal(i, seen["results"][0]) for i in seen["stamped"]):
+        raise AssertionError(f"geocalib main path: {len(seen['results'])} calibrations, "
+                             f"{len(seen['stamped'])} stamped frames, not all equal to the result")
+    rec["geocalib"] = {"intrinsics": seen["results"][0].tolist(),
+                       "host_s": rec["stages_host_s"]["geocalib"]["s"],
+                       "peak_mem_gib": rec["stage_peak_mem_gib"]["geocalib"]}
+    return rec, captured
+
+
+def determinism_check(main_paths):
+    """Two runs of one main path in one call must agree: keyframes,
+    removals and K1 launches equal, intrinsics and trajectory bit-equal."""
+    out = {}
+    for a, b in (("volume", "volume_again"), ("mei_masks_depth", "mei_masks_depth_again")):
+        ra, rb = main_paths[a], main_paths[b]
+        same = {k: ra[k] == rb[k] for k in ("keyframes", "n_removals", "late_removals",
+                                             "intrinsics_hex", "trajectory_sha1")}
+        same["K1_launches"] = ra["launches"]["corr_lookup"] == rb["launches"]["corr_lookup"]
+        if not all(same.values()):
+            raise AssertionError(f"runs {a} and {b} of one code differ: {same}")
+        out[f"{a} / {b}"] = same
+    return out
 
 
 def main():
@@ -1085,6 +1242,9 @@ def main():
         # band in every frame's mask, the constant keyframe depth prior
         ("mei_masks_depth", {"camera_type": "mei", "keyframe_depth": "constant-2.0"},
          MAIN_FRAMES, ["corr_lookup"], {"stream_kw": mei, "init": {"intrinsics": "gt"}}),
+        # the MEI run again: two runs of one code must give the same bits
+        ("mei_masks_depth_again", {"camera_type": "mei", "keyframe_depth": "constant-2.0"},
+         MAIN_FRAMES, ["corr_lookup"], {"stream_kw": mei, "init": {"intrinsics": "gt"}}),
     ]
     # the rig: 2 views, every frame edge expanded into one edge per view;
     # its filler keeps volumes in alt mode too, as the JAX package's does
@@ -1099,7 +1259,14 @@ def main():
             label, cfg, n_frames, rig_thresh if kw.get("rig") else thresh, required, **kw)
         print(json.dumps({"main_path": main_paths[label]}), flush=True)
 
+    print(json.dumps({"determinism": determinism_check(main_paths)}), flush=True)
+    print(json.dumps({"geocalib_lm": geocalib_lm_phase()}), flush=True)
+    print(json.dumps({"geocalib_net": geocalib_net_phase()}), flush=True)
+    main_paths["geocalib"], captured["geocalib"] = geocalib_main_path_phase()
+    print(json.dumps({"main_path": main_paths["geocalib"]}), flush=True)
+
     k1["launches"] = main_paths["volume"]["launches"]["corr_lookup"]
+    k1["geocalib_launches"] = main_paths["geocalib"]["launches"]["corr_lookup"]
     k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
     k1["rig_launches"] = main_paths["rig_volume"]["launches"]["corr_lookup"]
     k2["rig_launches"] = main_paths["rig_alt"]["launches"]["corr_fused"]

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA card and skips without one.  The file imports
-neither JAX nor ``vipe_tpu``, so it also runs on a machine that has only
-PyTorch and the CUDA toolkit::
+Every test here needs a CUDA card and skips without one; the last holds
+the deterministic segment sum (plain PyTorch, no kernel of the port) to
+its bits on the card.  The file imports neither JAX nor ``vipe_tpu``, so it
+also runs on a machine that has only PyTorch and the CUDA toolkit::
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -350,3 +351,19 @@ def test_rig_cross_view_lookups_match_plain(cuda_device, corr_mode, corr_dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     assert int(torch.count_nonzero(out)) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,tail,n", [(48, (128, 41, 73), 12), (2000, (6, 36), 121)])
+def test_segment_sum_repeats_on_the_card(cuda_device, rows, tail, n):
+    """The BA's and GraphAgg's segment sum gives the same bits on every run
+    (``index_add_`` on the card adds with atomics), and the CPU's bits: both
+    add each segment's rows in their order."""
+    from vipe_tpu_torch.ops.segment import segment_sum
+
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.standard_normal((rows,) + tail).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, n, rows))
+    runs = [segment_sum(x.to(cuda_device), idx.to(cuda_device), n).cpu() for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    assert torch.equal(runs[0], segment_sum(x, idx, n))

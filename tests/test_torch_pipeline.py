@@ -146,7 +146,6 @@ def test_unported_pipeline_options_raise():
     from vipe_tpu_torch.pipeline.default import DefaultAnnotationPipeline
 
     for kw in (dict(init={"instance": "track_anything"}),
-               dict(init={"intrinsics": "geocalib"}),
                dict(post={"depth_align_model": "adaptive_unidepth-l_vda"})):
         with pytest.raises(NotImplementedError):
             DefaultAnnotationPipeline(device="cpu", **kw)

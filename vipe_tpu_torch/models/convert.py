@@ -1,8 +1,9 @@
-"""Flax → PyTorch weight conversion for DroidNet.
+"""Flax → PyTorch weight conversion for DroidNet and GeoCalib.
 
-``droidnet_state_dict_from_flax`` is the inverse of
-``vipe_tpu.models.convert.convert_droidnet``: it turns the JAX package's
-param tree (given as numpy arrays) into this port's state dict, so both
+``droidnet_state_dict_from_flax`` and ``geocalib_state_dict_from_flax`` are
+the inverses of ``vipe_tpu.models.convert.convert_droidnet`` and
+``convert_geocalib``: they turn the JAX package's param trees (given as
+numpy arrays) into this port's state dicts, in ViPE's key layout, so both
 packages can run the same weights.  Conv kernels go from flax
 ``(kh, kw, I, O)`` to torch ``(O, I, kh, kw)``.
 """
@@ -27,10 +28,16 @@ _AGG = {"conv1": "update.agg.conv1", "conv2": "update.agg.conv2", "eta": "update
 _GRU = ("convz", "convr", "convq", "w", "convz_glo", "convr_glo", "convq_glo")
 
 
+def _tensor(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
 def _put(sd: dict, key: str, entry: dict):
+    """A conv; its bias is optional (GeoCalib's ``out_conv`` has none)."""
     k = np.asarray(entry["kernel"], np.float32)
     sd[f"{key}.weight"] = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-    sd[f"{key}.bias"] = torch.from_numpy(np.asarray(entry["bias"], np.float32).copy())
+    if "bias" in entry:
+        sd[f"{key}.bias"] = _tensor(entry["bias"])
 
 
 def _encoder(sd: dict, prefix: str, tree: dict):
@@ -60,4 +67,70 @@ def droidnet_state_dict_from_flax(params) -> dict:
         _put(sd, f"update.gru.{name}", upd["gru"][name])
     for name, key in _AGG.items():
         _put(sd, key, upd["agg"][name])
+    return sd
+
+
+def _put_norm(sd: dict, key: str, params: dict, stats=None):
+    """LayerNorm (``stats`` None) or BatchNorm (running statistics)."""
+    sd[f"{key}.weight"] = _tensor(params["scale"])
+    sd[f"{key}.bias"] = _tensor(params["bias"])
+    if stats is not None:
+        sd[f"{key}.running_mean"] = _tensor(stats["mean"])
+        sd[f"{key}.running_var"] = _tensor(stats["var"])
+
+
+_GATE = ("conv0", "conv0_1", "conv0_2", "conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3")
+
+
+def _ham_head(sd: dict, prefix: str, p: dict):
+    for name in ("squeeze", "align", "out_conv"):
+        _put(sd, f"{prefix}.{name}.conv", p[name]["conv"])
+    for name in ("ham_in", "ham_out"):
+        _put(sd, f"{prefix}.hamburger.{name}.conv", p["hamburger"][name]["conv"])
+    for unit in (1, 2):
+        for conv in ("conv1", "conv2"):
+            _put(sd, f"{prefix}.ll_fusion.resConfUnit{unit}.{conv}",
+                      p[f"ll_rcu{unit}"][conv])
+    _put(sd, f"{prefix}.linear_pred_uncertainty.0.conv", p["unc_conv"]["conv"])
+    _put(sd, f"{prefix}.linear_pred_uncertainty.1", p["unc_pred"])
+
+
+def geocalib_state_dict_from_flax(variables) -> dict:
+    """``{"params", "batch_stats"}`` of ``vipe_tpu``'s ``GeoCalibNet``
+    (numpy leaves) → the port's ``GeoCalibNet`` state dict (f32 tensors)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: dict = {}
+    bp, bs = p["backbone"], s["backbone"]
+    bb = "backbone"
+    _put(sd, f"{bb}.patch_embed1.proj.0", bp["stem_conv1"])
+    _put_norm(sd, f"{bb}.patch_embed1.proj.1", bp["stem_bn1"], bs["stem_bn1"])
+    _put(sd, f"{bb}.patch_embed1.proj.3", bp["stem_conv2"])
+    _put_norm(sd, f"{bb}.patch_embed1.proj.4", bp["stem_bn2"], bs["stem_bn2"])
+    for i, depth in enumerate((3, 3, 12, 3)):
+        if i > 0:
+            _put(sd, f"{bb}.patch_embed{i + 1}.proj", bp[f"patch_embed{i + 1}"])
+            _put_norm(sd, f"{bb}.patch_embed{i + 1}.norm", bp[f"patch_bn{i + 1}"],
+                      bs[f"patch_bn{i + 1}"])
+        for j in range(depth):
+            b, bpj, bsj = f"{bb}.block{i + 1}.{j}", bp[f"stage{i + 1}_block{j}"], \
+                bs[f"stage{i + 1}_block{j}"]
+            sd[f"{b}.layer_scale_1"] = _tensor(bpj["layer_scale_1"])
+            sd[f"{b}.layer_scale_2"] = _tensor(bpj["layer_scale_2"])
+            _put_norm(sd, f"{b}.norm1", bpj["norm1"], bsj["norm1"])
+            _put_norm(sd, f"{b}.norm2", bpj["norm2"], bsj["norm2"])
+            _put(sd, f"{b}.attn.proj_1", bpj["attn_proj1"])
+            _put(sd, f"{b}.attn.proj_2", bpj["attn_proj2"])
+            for name in _GATE:
+                _put(sd, f"{b}.attn.spatial_gating_unit.{name}", bpj["attn_gate"][name])
+            _put(sd, f"{b}.mlp.fc1", bpj["mlp"]["fc1"])
+            _put(sd, f"{b}.mlp.dwconv.dwconv", bpj["mlp"]["dwconv"]["dwconv"])
+            _put(sd, f"{b}.mlp.fc2", bpj["mlp"]["fc2"])
+        _put_norm(sd, f"{bb}.norm{i + 1}", bp[f"norm{i + 1}"])
+    _put(sd, "ll_enc.conv1.conv", p["ll_conv1"]["conv"])
+    _put(sd, "ll_enc.conv2.conv", p["ll_conv2"]["conv"])
+    pd = "perspective_decoder"
+    _ham_head(sd, f"{pd}.up_head.decoder", p["up_decoder"])
+    _put(sd, f"{pd}.up_head.linear_pred_up", p["linear_pred_up"])
+    _ham_head(sd, f"{pd}.latitude_head.decoder", p["lat_decoder"])
+    _put(sd, f"{pd}.latitude_head.linear_pred_latitude", p["linear_pred_latitude"])
     return sd

@@ -15,12 +15,14 @@ the update operator are f32, as in the JAX package.
 
 from __future__ import annotations
 
-import os
 import pathlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.segment import segment_sum
+from .zoo import weights_dir
 
 DIM = 32
 CORR_PLANES = 4 * (2 * 3 + 1) ** 2  # 196
@@ -142,11 +144,9 @@ class GraphAgg(nn.Module):
     def forward(self, net, ix, num_frames: int):
         """net: (E, 128, H, W); ix: (E,) source index → (num_frames, H, W)."""
         net = F.relu(_cv(self.conv1, net))
-        E, C, H, W = net.shape
-        summed = torch.zeros((num_frames, C, H, W), dtype=torch.float32, device=net.device)
-        summed.index_add_(0, ix, net.float())
-        counts = torch.zeros((num_frames,), dtype=torch.float32, device=net.device)
-        counts.index_add_(0, ix, torch.ones((E,), dtype=torch.float32, device=net.device))
+        summed = segment_sum(net.float(), ix, num_frames)
+        counts = segment_sum(torch.ones(ix.shape, dtype=torch.float32, device=net.device), ix,
+                             num_frames)
         net = (summed / torch.clamp(counts, min=1.0)[:, None, None, None]).to(net.dtype)
         net = F.relu(self.conv2(net))
         eta = F.softplus(self.eta(net).float())
@@ -230,9 +230,7 @@ def init_droidnet_(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 def weights_path() -> pathlib.Path:
-    return pathlib.Path(
-        os.environ.get("VIPE_WEIGHTS_DIR", os.path.expanduser("~/.cache/vipe_weights"))
-    ) / "droid.pth"
+    return weights_dir() / "droid.pth"
 
 
 def load_checkpoint_(model: DroidNet, state_dict) -> DroidNet:

@@ -1,0 +1,73 @@
+"""Local weight registry (port of ``vipe_tpu/models/zoo.py``, as far as the
+port's modules go).
+
+Weights are read from ``$VIPE_WEIGHTS_DIR`` (default
+``~/.cache/vipe_weights``), nothing is downloaded.  Per family the first of
+these files found is used:
+
+* ``<family>.npz``: the JAX package's flax tree (keys '/'-joined),
+  converted by this port's flax → torch converter;
+* ``<family>.pth`` / ``.pt`` / ``.ckpt`` / ``.bin``: a ViPE state dict,
+  loaded as is (``weights_only=True``).
+
+No file → ``load_state_dict`` returns None and the model is random-initialised
+from a seed.  A family that the port has no module for raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+_EXTS = (".npz", ".pth", ".pt", ".ckpt", ".bin")
+FAMILIES = ("geocalib_pinhole", "geocalib_distorted")
+
+
+def weights_dir() -> pathlib.Path:
+    return pathlib.Path(os.environ.get("VIPE_WEIGHTS_DIR",
+                                       os.path.expanduser("~/.cache/vipe_weights")))
+
+
+def _find(family: str) -> Optional[pathlib.Path]:
+    d = weights_dir()
+    for ext in _EXTS:
+        p = d / f"{family}{ext}"
+        if p.is_file():
+            return p
+    return None
+
+
+def _unflatten(flat) -> dict:
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def load_state_dict(family: str) -> Optional[dict]:
+    """The port's state dict for ``family``, or None when no weight file is
+    present."""
+    if family not in FAMILIES:
+        raise NotImplementedError(f"weight family {family!r} has no module in the port yet")
+    path = _find(family)
+    if path is None:
+        return None
+    if path.suffix == ".npz":
+        from .convert import geocalib_state_dict_from_flax
+
+        with np.load(path) as z:
+            return geocalib_state_dict_from_flax(_unflatten({k: z[k] for k in z.files}))
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model", "model_state_dict", "module"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+    return {k.removeprefix("module."): v for k, v in obj.items() if isinstance(v, torch.Tensor)}

@@ -4,11 +4,13 @@ intrinsics processor → SLAMSystem → artifacts.  A rig capture (a
 view's artifacts under the view's own stream name, with the view's camera
 trajectory ``c2w · rig[v]`` and its intrinsics.
 
-``init.intrinsics`` is ``fov`` or ``gt`` (the stream's own); the keyframe
-depth prior of ``slam.keyframe_depth`` is built by the depth factory, which
-holds the ``constant-<depth>`` prior so far.  The learned priors (GeoCalib,
-depth alignment, TrackAnything instances) are not ported yet; asking for
-one raises ``NotImplementedError``.
+``init.intrinsics`` is ``fov``, ``gt`` (the stream's own) or ``geocalib``
+(calibrated from sampled frames of the raw stream, for ``init.camera_type``;
+each view of a rig on its own stream); the keyframe depth prior of
+``slam.keyframe_depth`` is built by the depth factory, which holds the
+``constant-<depth>`` prior so far.  The other learned priors (depth
+alignment, TrackAnything instances) are not ported yet; asking for one
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..utils import io as io_utils
 from ..utils import profiling
 from ..utils.device import resolve_device
 from . import AnnotationPipelineOutput, Pipeline
-from .processors import HeuristicIntrinsicsProcessor
+from .processors import GeoCalibIntrinsicsProcessor, HeuristicIntrinsicsProcessor
 
 
 class DefaultAnnotationPipeline(Pipeline):
@@ -41,7 +43,7 @@ class DefaultAnnotationPipeline(Pipeline):
         self.output_cfg = dict(output or {})
         self.device = resolve_device(device)
         intr_mode = self.init_cfg.get("intrinsics", "fov")
-        if intr_mode not in ("fov", "gt", None):
+        if intr_mode not in ("fov", "gt", "geocalib", None):
             raise NotImplementedError(f"init.intrinsics={intr_mode!r} is not ported yet")
         for section, key in (("init", "instance"), ("post", "depth_align_model")):
             if getattr(self, f"{section}_cfg").get(key):
@@ -67,7 +69,12 @@ class DefaultAnnotationPipeline(Pipeline):
         """The stream with the init processors, cached for SLAM's two passes
         and the artifact pass."""
         procs = []
-        if self.init_cfg.get("intrinsics", "fov") in ("fov", None):
+        intr_mode = self.init_cfg.get("intrinsics", "fov")
+        if intr_mode == "geocalib":
+            procs.append(GeoCalibIntrinsicsProcessor(
+                camera_type=self.init_cfg.get("camera_type", "pinhole"),
+                sample_stream=video_stream, device=self.device))
+        elif intr_mode in ("fov", None):
             procs.append(HeuristicIntrinsicsProcessor(self.init_cfg.get("fov_deg", 60.0)))
         return ProcessedVideoStream(video_stream, procs).cache(online=True, compress_rgb=True)
 

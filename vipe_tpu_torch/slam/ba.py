@@ -39,6 +39,7 @@ from torch.func import jacfwd
 
 from ..ops import cameras as cam
 from ..ops import lie
+from ..ops.segment import segment_sum
 
 _PROJ_MIN_DEPTH = 0.1  # cameras.MIN_DEPTH: the valid-mask threshold of the terms
 
@@ -198,12 +199,6 @@ def _retr_linear(X, xi):
     return lie.se3_mul(torch.cat([xi[0:3], q]), X)
 
 
-def _seg(x, idx, n):
-    """Segment sum of ``x`` rows by ``idx`` into ``n`` rows."""
-    out = torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, idx, x)
-
-
 def _blk(Ja, w, Jb):
     """Σ_p,c Ja[e,p,c,i]·w[e,p,c]·Jb[e,p,c,j] → (E, a, b)."""
     E = Ja.shape[0]
@@ -256,8 +251,8 @@ def assemble_system(cfg: BAConfig, poses, disps, intrinsics, target, weight,
         Ef_blk = torch.einsum("epci,epc->eip", Jt, wz)
 
     # disparity diagonal, per source disparity variable
-    C = _seg(C_edge, di, ND) + disp_damping + cfg.disp_ep
-    b_disp = _seg(bz_edge, di, ND)
+    C = segment_sum(C_edge, di, ND) + disp_damping + cfg.disp_ep
+    b_disp = segment_sum(bz_edge, di, ND)
     sensw = cfg.alpha * sens_mask[:, None]
     C = C + sensw
     b_disp = b_disp - sensw * (disps - disp_sens)
@@ -265,7 +260,7 @@ def assemble_system(cfg: BAConfig, poses, disps, intrinsics, target, weight,
 
     # per-variable Schur grouping: rows [own frame's pose (6)] + M × [pose
     # jj (6)] + [tail]
-    Ei_sum = _seg(Ei_blk, di, ND)                                  # (ND, 6, P)
+    Ei_sum = segment_sum(Ei_blk, di, ND)                           # (ND, 6, P)
     slot_valid = slot_edge < E
     Ej_pad = torch.cat([Ej_blk, torch.zeros((1, 6, P), device=dev)], 0)
     G_j = Ej_pad[torch.clamp(slot_edge, max=E)]                    # (ND, M, 6, P)
@@ -278,7 +273,7 @@ def assemble_system(cfg: BAConfig, poses, disps, intrinsics, target, weight,
     R6 = (1 + M) * 6
     G = torch.cat([Ei_sum[:, None], G_j], dim=1).reshape(ND, R6, P)
     if kt:
-        G = torch.cat([G, _seg(Ef_blk, di, ND)], dim=1)           # (ND, R6+kt, P)
+        G = torch.cat([G, segment_sum(Ef_blk, di, ND)], dim=1)    # (ND, R6+kt, P)
     GC = G * Cinv[:, None, :]
     S = torch.bmm(GC, G.transpose(1, 2))                          # (ND, R, R)
     b_schur_rows = torch.bmm(GC, b_disp[:, :, None])[..., 0]      # (ND, R)
@@ -289,23 +284,25 @@ def assemble_system(cfg: BAConfig, poses, disps, intrinsics, target, weight,
     jjv = torch.where(edge_valid, jj, torch.full_like(jj, N))
     pair_idx = torch.cat([iiv * NV + iiv, iiv * NV + jjv, jjv * NV + iiv, jjv * NV + jjv])
     pair_blk = torch.cat([Bii, Bij, Bij.transpose(1, 2), Bjj]).reshape(4 * E, 36)
-    H_pose = _seg(pair_blk, pair_idx, NV * NV).reshape(NV, NV, 6, 6)
+    H_pose = segment_sum(pair_blk, pair_idx, NV * NV).reshape(NV, NV, 6, 6)
     Spp = S[:, :R6, :R6].reshape(ND, 1 + M, 6, 1 + M, 6).permute(0, 1, 3, 2, 4)
     corr_idx = (fvar[:, :, None] * NV + fvar[:, None, :]).reshape(-1)
-    H_pose = H_pose - _seg(Spp.reshape(-1, 36), corr_idx, NV * NV).reshape(NV, NV, 6, 6)
+    H_pose = H_pose - segment_sum(Spp.reshape(-1, 36), corr_idx,
+                                  NV * NV).reshape(NV, NV, 6, 6)
 
-    b_pose = _seg(torch.cat([vi, vj]), torch.cat([iiv, jjv]), NV)
-    b_pose = b_pose - _seg(b_schur_rows[:, :R6].reshape(ND * (1 + M), 6), fvar.reshape(-1), NV)
+    b_pose = segment_sum(torch.cat([vi, vj]), torch.cat([iiv, jjv]), NV)
+    b_pose = b_pose - segment_sum(b_schur_rows[:, :R6].reshape(ND * (1 + M), 6),
+                                  fvar.reshape(-1), NV)
 
     ev = edge_valid.float()
     if kt:
         H_ff = (Bff_e * ev[:, None, None]).sum(0) - S[:, R6:, R6:].sum(0)
-        Hpf_direct = _seg(
+        Hpf_direct = segment_sum(
             torch.cat([Bfi_e.transpose(1, 2), Bfj_e.transpose(1, 2)]),
             torch.cat([iiv, jjv]), NV,
         )                                                          # (NV, 6, kt)
         Spf = S[:, :R6, R6:].reshape(ND * (1 + M), 6, kt)
-        H_pf = Hpf_direct - _seg(Spf, fvar.reshape(-1), NV)
+        H_pf = Hpf_direct - segment_sum(Spf, fvar.reshape(-1), NV)
         b_f = (vf_e * ev[:, None]).sum(0) - b_schur_rows[:, R6:].sum(0)
         if cfg.kr:
             # intrinsics damped 1e-6, the rig 1e-4; the rig of view 0 fixed

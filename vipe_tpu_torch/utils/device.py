@@ -5,6 +5,8 @@ card is an error, never a silent fallback."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -18,3 +20,17 @@ def resolve_device(device=None) -> torch.device:
             "CLI) to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def true_f32():
+    """Matmuls and cuDNN convolutions inside run in IEEE f32, not TF32,
+    whatever the caller set."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                        allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
