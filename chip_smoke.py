@@ -43,23 +43,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``MultiviewVideoList`` through the pipeline, volume (K1) and
    ``corr_mode: alt`` (K2), each frame edge expanded into one edge per
    view; prints time steps and view-frames per second besides;
-8. holds the two volume runs and the two MEI runs to each other: equal
-   keyframes, removals and K1 launches, bit-equal trajectories and
-   intrinsics;
-9. GeoCalib: fits the LM on the card to exact up and latitude fields at
+8. UniDepth-L (ViT-L/14, the 512-wide decoder; seeded random weights):
+   holds the net on the card to the CPU in IEEE f32 at 224×280, the bf16
+   SLAM prior to the f32 one at 532×952 (a 720p frame), times the forward
+   at 532×952 in bf16 and f32 against the operations it counts; then
+   drives the volume main path twice with ``slam.keyframe_depth:
+   unidepth-l`` and checks every keyframe's disparity prior;
+9. holds the two volume runs, the two MEI runs and the two UniDepth runs
+   to each other: equal keyframes, removals and K1 launches, bit-equal
+   trajectories and intrinsics;
+10. GeoCalib: fits the LM on the card to exact up and latitude fields at
    320×544 (pinhole over three frames, simple_mei with k1) and holds it to
    ground truth; holds ``GeoCalibNet`` (seeded weights) on the card to
    the same module on the CPU and times its forward; drives the main path
    with ``init.intrinsics: geocalib`` (volume), its threshold calibrated
    on the GeoCalib-stamped stream, and checks that every frame carries
    the GeoCalib result; prints the stage's host seconds and peak;
-10. times K1 (volume runs) and K2 (alt runs) on the coords captured in the
+11. times K1 (volume runs) and K2 (alt runs) on the coords captured in the
    single-view and the rig runs, with seeded features of the same shapes,
    warm and with a cold L2 cache, and holds both against their plain
    versions on a 720p rig edge set with cross-view edges (the main path
    proposes none), in volume/bf16, volume/int8 and alt;
-11. prints the ``kernels`` JSON line (K1's launches on the GeoCalib path
-    too) and, last, the ``ok`` JSON line.
+12. prints the ``kernels`` JSON line (K1's launches on the GeoCalib and
+    the UniDepth paths too) and, last, the ``ok`` JSON line.
 
 Kernel times come from CUDA events: the mean of back-to-back launches
 (warm L2) as ``ms``, and the median of launches each preceded by a 128 MB
@@ -102,6 +108,15 @@ RIG_XI = [0.12, 0.0, 0.0, 0.0, 0.1, 0.0]  # view 1: 0.12 m right, yawed 0.1 rad
 # to a multiple of 32
 GEOCALIB_H, GEOCALIB_W = 320, 544
 GEOCALIB_NET_TOL = 1e-4  # card against CPU, both IEEE f32 (no TF32)
+# UniDepth-L: the net's input for a 720p frame under its pixel bounds
+# (200k-500k: no padding, ×0.7366 to 532×952), and a small input for the
+# card-against-CPU check
+UNIDEPTH_H, UNIDEPTH_W = 532, 952
+UNIDEPTH_SMALL_H, UNIDEPTH_SMALL_W = 224, 280
+UNIDEPTH_NET_RTOL = 1e-3  # card against CPU, both IEEE f32, relative to the largest value
+# the bf16 SLAM prior against the f32 one on the card, relative to the
+# largest prior: bf16 activations through 24 blocks and the decoder
+UNIDEPTH_BF16_RTOL = 5e-2
 
 
 def _require_environment():
@@ -1184,11 +1199,153 @@ def geocalib_main_path_phase():
     return rec, captured
 
 
+# ------------------------------------------------------------------ UniDepth
+
+
+def _rel_err(ref, got) -> float:
+    ref, got = ref.double().cpu(), got.double().cpu()
+    return float((ref - got).abs().max() / ref.abs().max())
+
+
+def unidepth_net_phase():
+    """UniDepth-L at its published width (ViT-L/14 and the 512-wide
+    decoder), seeded random weights: the card against the CPU in IEEE f32 at
+    224×280 (given rays and the predicted camera); the SLAM prior in bf16
+    against the same path in f32 on the card at 532×952 (a seeded 720p
+    uint8 frame, focal 900 px); forward times at 532×952 in bf16 and f32
+    by CUDA events, warm, with the operations counted by
+    ``torch.utils.flop_counter`` and the bound at the card's peak for the
+    type."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vipe_tpu_torch.priors.depth.factory import make_depth_model
+    from vipe_tpu_torch.priors.depth.unidepth import UniDepthModel, pinhole_rays
+    from vipe_tpu_torch.utils.device import true_f32
+
+    out = {"variant": "vitl", "precision_check": "f32 convolutions and matmuls, TF32 off"}
+    cpu = UniDepthModel("l", device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((1, 3, UNIDEPTH_SMALL_H, UNIDEPTH_SMALL_W), generator=g)
+    intr = torch.tensor([[300.0, 300.0, UNIDEPTH_SMALL_W / 2 + 3.3, UNIDEPTH_SMALL_H / 2 - 2.1]])
+    rays = pinhole_rays(intr, (UNIDEPTH_SMALL_H, UNIDEPTH_SMALL_W))
+    errs = {}
+    with torch.no_grad(), true_f32():
+        refs = {cam: cpu.net(x, r) for cam, r in (("given_rays", rays), ("predicted", None))}
+        net = cpu.net.to("cuda")
+        for cam, r in (("given_rays", rays), ("predicted", None)):
+            got = net(x.cuda(), None if r is None else r.cuda())
+            errs[cam] = {k: _rel_err(refs[cam][k], got[k])
+                         for k in ("depth", "confidence", "intrinsics")}
+    del cpu, net, refs, got
+    worst = max(v for e in errs.values() for v in e.values())
+    if not worst <= UNIDEPTH_NET_RTOL:
+        raise AssertionError(f"UniDepthNet on the card against the CPU: {errs} "
+                             f"(limit {UNIDEPTH_NET_RTOL})")
+    out["card_vs_cpu"] = {"size": [UNIDEPTH_SMALL_H, UNIDEPTH_SMALL_W], "rel_err": errs,
+                          "tol": UNIDEPTH_NET_RTOL}
+
+    # a model of its own for the f32 checks: the factory's, which the main
+    # paths below reuse, then holds only its bf16 weights on the card
+    model = UniDepthModel("l", device="cuda")
+    img = torch.randint(0, 256, (MAIN_H, MAIN_W, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(2)).cuda()
+    row = torch.tensor([900.0, 900.0, MAIN_W / 2, MAIN_H / 2], device="cuda")
+    sens16 = model.estimate_sens_device(img, row)
+    sens32 = model.estimate_sens_device(img, row, dtype=torch.float32)
+    err = _rel_err(sens32, sens16)
+    if not (bool(torch.isfinite(sens16).all()) and bool((sens16 > 0).all())
+            and err <= UNIDEPTH_BF16_RTOL):
+        raise AssertionError(f"UniDepth bf16 prior against f32 on the card: {err} "
+                             f"(limit {UNIDEPTH_BF16_RTOL}), finite and positive?")
+    out["bf16_vs_f32_prior"] = {"frame": [MAIN_H, MAIN_W], "grid": list(sens16.shape),
+                                "rel_err": err, "tol": UNIDEPTH_BF16_RTOL}
+
+    xs = torch.randn((1, 3, UNIDEPTH_H, UNIDEPTH_W), generator=g).cuda()
+    big_rays = pinhole_rays(torch.tensor([[663.0, 663.0, UNIDEPTH_W / 2, UNIDEPTH_H / 2]]),
+                            (UNIDEPTH_H, UNIDEPTH_W)).cuda()
+    timing = {}
+    with torch.no_grad():
+        for name, net, dtype, peak in (("bf16", model.net_bf16, torch.bfloat16,
+                                        BF16_TENSOR_FLOPS_PER_S),
+                                       ("f32", model.net, torch.float32, F32_FLOPS_PER_S)):
+            xin, rin = xs.to(dtype), big_rays.to(dtype)
+            with true_f32():
+                with FlopCounterMode(display=False) as fc:
+                    net(xin, rin)
+                flops = fc.get_total_flops()
+                torch.cuda.reset_peak_memory_stats()
+                ms = _cuda_ms(lambda: net(xin, rin), 5)
+            timing[name] = {"ms": ms, "flops": flops, "bound_ms": flops / peak * 1e3,
+                            "bound_by": "operations", "tflops_per_s": flops / ms / 1e9,
+                            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    out["forward"] = {"size": [UNIDEPTH_H, UNIDEPTH_W], **timing,
+                      "params": sum(p.numel() for p in model.net.parameters())}
+    del model, xs, img
+    torch.cuda.empty_cache()
+    make_depth_model("unidepth-l", device="cuda").net_bf16  # built before the timed runs
+    return out
+
+
+@contextlib.contextmanager
+def unidepth_spy():
+    """While active, counts the calls of the UniDepth prior and keeps the
+    SLAM buffers it fills; yields the dict."""
+    from vipe_tpu_torch.priors.depth.unidepth import UniDepthModel
+    from vipe_tpu_torch.slam.buffer import GraphBuffer
+
+    orig_sens, orig_update = UniDepthModel.estimate_sens_device, GraphBuffer.update_disps_sens
+    seen = {"calls": 0, "buffers": []}
+
+    def sens(self, *args, **kwargs):
+        seen["calls"] += 1
+        return orig_sens(self, *args, **kwargs)
+
+    def update(self, depth_model, frame_idx=None):
+        if not any(b is self for b in seen["buffers"]):
+            seen["buffers"].append(self)
+        return orig_update(self, depth_model, frame_idx)
+
+    UniDepthModel.estimate_sens_device, GraphBuffer.update_disps_sens = sens, update
+    try:
+        yield seen
+    finally:
+        UniDepthModel.estimate_sens_device, GraphBuffer.update_disps_sens = orig_sens, orig_update
+
+
+def unidepth_main_path_phase(label, thresh):
+    """``slam.keyframe_depth: unidepth-l`` (volume) on the seeded 32-frame
+    720p stream: the prior runs on every keyframe, and again on every
+    keyframe when the backend changes the focal.  Every keyframe's
+    disparity prior must be finite and positive."""
+    import torch
+
+    with unidepth_spy() as seen:
+        rec, captured = main_path_phase(label, {"keyframe_depth": "unidepth-l"}, MAIN_FRAMES,
+                                        thresh, ["corr_lookup"])
+    if len(seen["buffers"]) != 1:
+        raise AssertionError(f"{label}: the prior filled {len(seen['buffers'])} buffers")
+    buf = seen["buffers"][0]
+    sens = buf.disps_sens[:buf.n_frames]
+    if buf.n_frames != rec["keyframes"] or not (bool(torch.isfinite(sens).all())
+                                                and bool((sens > 0).all())):
+        raise AssertionError(f"{label}: keyframe disparity priors not finite and positive "
+                             f"({buf.n_frames} slots, {rec['keyframes']} keyframes)")
+    stage = rec["stages_host_s"]["keyframe_depth"]
+    rec["keyframe_depth"] = {"prior_calls": seen["calls"], "stage_calls": stage["n"],
+                             "host_s": stage["s"],
+                             "peak_mem_gib": rec["stage_peak_mem_gib"]["keyframe_depth"],
+                             "prior_min": float(sens.min()), "prior_max": float(sens.max())}
+    del buf, sens, seen
+    return rec, captured
+
+
 def determinism_check(main_paths):
     """Two runs of one main path in one call must agree: keyframes,
     removals and K1 launches equal, intrinsics and trajectory bit-equal."""
     out = {}
-    for a, b in (("volume", "volume_again"), ("mei_masks_depth", "mei_masks_depth_again")):
+    for a, b in (("volume", "volume_again"), ("mei_masks_depth", "mei_masks_depth_again"),
+                 ("unidepth", "unidepth_again")):
         ra, rb = main_paths[a], main_paths[b]
         same = {k: ra[k] == rb[k] for k in ("keyframes", "n_removals", "late_removals",
                                              "intrinsics_hex", "trajectory_sha1")}
@@ -1259,6 +1416,17 @@ def main():
             label, cfg, n_frames, rig_thresh if kw.get("rig") else thresh, required, **kw)
         print(json.dumps({"main_path": main_paths[label]}), flush=True)
 
+    print(json.dumps({"unidepth_net": unidepth_net_phase()}), flush=True)
+    # the UniDepth keyframe prior, twice: two runs of one code, the same bits
+    for label in ("unidepth", "unidepth_again"):
+        main_paths[label], captured[label] = unidepth_main_path_phase(label, thresh)
+        print(json.dumps({"main_path": main_paths[label]}), flush=True)
+    # the process keeps the factory's UniDepth-L (0.83 GiB on the card):
+    # drop it, so that the later paths' peaks are their own
+    from vipe_tpu_torch.models import model_cache
+
+    model_cache.clear()
+
     print(json.dumps({"determinism": determinism_check(main_paths)}), flush=True)
     print(json.dumps({"geocalib_lm": geocalib_lm_phase()}), flush=True)
     print(json.dumps({"geocalib_net": geocalib_net_phase()}), flush=True)
@@ -1267,6 +1435,7 @@ def main():
 
     k1["launches"] = main_paths["volume"]["launches"]["corr_lookup"]
     k1["geocalib_launches"] = main_paths["geocalib"]["launches"]["corr_lookup"]
+    k1["unidepth_launches"] = main_paths["unidepth"]["launches"]["corr_lookup"]
     k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
     k1["rig_launches"] = main_paths["rig_volume"]["launches"]["corr_lookup"]
     k2["rig_launches"] = main_paths["rig_alt"]["launches"]["corr_fused"]

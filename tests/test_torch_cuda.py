@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA card and skips without one; the last holds
-the deterministic segment sum (plain PyTorch, no kernel of the port) to
-its bits on the card.  The file imports neither JAX nor ``vipe_tpu``, so it
+Every test here needs a CUDA card and skips without one; the last ones
+hold the deterministic segment sum (plain PyTorch, no kernel of the port)
+to its bits on the card, and UniDepth-S (library calls, no kernel of the
+port) on the card to the CPU and its bf16 SLAM prior to its f32 one.  The file imports neither JAX nor ``vipe_tpu``, so it
 also runs on a machine that has only PyTorch and the CUDA toolkit::
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -367,3 +368,50 @@ def test_segment_sum_repeats_on_the_card(cuda_device, rows, tail, n):
     runs = [segment_sum(x.to(cuda_device), idx.to(cuda_device), n).cpu() for _ in range(3)]
     assert all(torch.equal(r, runs[0]) for r in runs)
     assert torch.equal(runs[0], segment_sum(x, idx, n))
+
+
+def _unidepth_s(device):
+    """UniDepth-S at its published width (a 512-wide decoder), seeded."""
+    from vipe_tpu_torch.priors.depth.unidepth import UniDepthModel
+
+    return UniDepthModel("s", device=device, pixels_min=20_000, pixels_max=40_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("camera", ["given_rays", "predicted"])
+def test_unidepth_net_card_matches_cpu(cuda_device, camera):
+    """``UniDepthNet`` on the card against the CPU, both in IEEE f32 (no
+    TF32), within 1e-3 relative to the largest value: 12 blocks and the
+    decoder's sums in another order."""
+    from vipe_tpu_torch.priors.depth.unidepth import pinhole_rays
+    from vipe_tpu_torch.utils.device import true_f32
+
+    net = _unidepth_s("cpu").net
+    x = torch.randn((1, 3, 140, 182), generator=torch.Generator().manual_seed(1))
+    rays = None
+    if camera == "given_rays":
+        rays = pinhole_rays(torch.tensor([[150.0, 150.0, 93.3, 68.1]]), (140, 182))
+    with torch.no_grad(), true_f32():
+        ref = net(x, rays)
+        got = net.to(cuda_device)(x.to(cuda_device), None if rays is None else rays.to(cuda_device))
+    for key in ("depth", "confidence", "intrinsics"):
+        err = (got[key].cpu() - ref[key]).abs().max() / ref[key].abs().max()
+        assert float(err) < 1e-3, (key, float(err))
+
+
+@pytest.mark.cuda
+def test_unidepth_bf16_prior_matches_f32(cuda_device):
+    """SLAM's prior (``estimate_sens_device``) in bf16 against the same path
+    in f32 on the card, on a seeded 240×320 uint8 frame: within 5e-2 of the
+    largest prior, finite and positive.  The bf16 path leaves the f32
+    weights on the host."""
+    model = _unidepth_s(cuda_device)
+    g = torch.Generator().manual_seed(2)
+    img = torch.randint(0, 256, (240, 320, 3), dtype=torch.uint8, generator=g).to(cuda_device)
+    row = torch.tensor([300.0, 300.0, 160.0, 120.0], device=cuda_device)
+    got = model.estimate_sens_device(img, row)
+    assert all(p.device.type == "cpu" for p in model._net.parameters())
+    assert all(p.device.type == "cuda" for p in model.net_bf16.parameters())
+    ref = model.estimate_sens_device(img, row, dtype=torch.float32)
+    assert got.shape == (30, 40) and bool(torch.isfinite(got).all()) and bool((got > 0).all())
+    assert float((got - ref).abs().max() / ref.abs().max()) < 5e-2

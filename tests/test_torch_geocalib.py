@@ -6,7 +6,9 @@ Both sides run the same weights: the synthetic ViPE-layout state dict of
 ``tests/test_geocalib.py`` goes through ``convert_geocalib`` to the JAX
 package and, as is, into the port (``strict=True``); the port's NMF bases
 are the JAX package's (``PRNGKey(42)``).  The JAX network is jitted once, at
-64×96, and shared by every JAX ``GeoCalib`` here.
+64×96, and shared by every JAX ``GeoCalib`` here; the JAX references of the
+network, the preprocessing, the calibration and the LM run in two spawned
+processes, while the port's own tests run first.
 
 Tolerances: the fields and ``nmf2d`` are the same f32 formulas, 1e-5; the
 network stacks 21 MSCAN blocks and two decoders of f32 convolutions summed
@@ -26,6 +28,7 @@ import pytest
 import torch
 
 from tests.test_geocalib import make_synthetic_geocalib_sd
+from tests.test_torch_slam import BackgroundJax
 from vipe_tpu.models import model_cache as jax_model_cache
 from vipe_tpu.models.convert import convert_geocalib
 from vipe_tpu.pipeline import processors as jax_processors
@@ -54,9 +57,10 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    """(ViPE-layout numpy state dict, its flax variables, the JAX bases)."""
+@functools.lru_cache(maxsize=None)
+def _weights():
+    """(ViPE-layout numpy state dict, its flax variables, the JAX bases),
+    made alike in every process."""
     sd = make_synthetic_geocalib_sd(np.random.default_rng(0))
     bases = jax.random.uniform(jax.random.PRNGKey(42), (1, 512, 64))
     bases = bases / jnp.maximum(jnp.linalg.norm(bases, axis=1, keepdims=True), 1e-6)
@@ -64,9 +68,13 @@ def weights():
 
 
 @pytest.fixture(scope="module")
-def jax_models(weights):
+def weights():
+    return _weights()
+
+
+def _jax_models():
     """JAX ``GeoCalib`` for pinhole and simple_mei sharing one jitted net."""
-    _, variables, _ = weights
+    _, variables, _ = _weights()
     pin = jgc.GeoCalib("pinhole", params=variables, infer_size=INFER)
     mei = jgc.GeoCalib("simple_mei", params=variables, infer_size=INFER)
     mei._forward = pin._forward
@@ -84,6 +92,75 @@ def _torch_model(weights, camera_type):
 def _frames(seed, n, h=FRAME_H, w=FRAME_W):
     rng = np.random.default_rng(seed)
     return [rng.random((h, w, 3)).astype(np.float32) for _ in range(n)]
+
+
+# ------------------------------------------------------- JAX references
+#
+# The JAX network, preprocessing and calibration references, and the LM's,
+# run in two spawned processes (``BackgroundJax``) started by the module's
+# first test; their tests come last, after the port's own.
+
+PREPROCESS_SHAPES = ((FRAME_H, FRAME_W), (100, 150))
+CALIBRATE_CASES = (("pinhole", 3), ("simple_mei", 1))
+LM_SCENES = ("focal_and_gravity", "shared_intrinsics", "k1_simple_radial",
+             "k1_simple_divisional", "k1_simple_mei")
+
+
+def _net_input():
+    return np.random.default_rng(2).random((1, 64, 96, 3)).astype(np.float32)
+
+
+def _scene(name):
+    """(model, h, w, focal, rolls, pitches, k1) of ``tests/test_geocalib.py``'s
+    recovery scenes."""
+    if name == "focal_and_gravity":
+        return "pinhole", 24, 32, 40.0, [0.25], [-0.15], None
+    if name == "shared_intrinsics":
+        return "pinhole", 20, 24, 30.0, [0.1, -0.2, 0.3], [-0.1, 0.15, 0.05], None
+    model = name.removeprefix("k1_")
+    return model, 24, 40, 36.0, [0.15], [-0.1], K1[model]
+
+
+def _jax_net_job():
+    """The JAX network on one input, ``_preprocess`` per shape and
+    ``GeoCalib.calibrate`` per case, as numpy."""
+    _, variables, _ = _weights()
+    models = _jax_models()
+    ref = models["pinhole"]._forward(variables, jnp.asarray(_net_input()))
+    return {"net": {k: np.asarray(v) for k, v in ref.items()},
+            "preprocess": {shape: np.asarray(models["pinhole"]._preprocess(_frames(3, 1, *shape)[0]))
+                           for shape in PREPROCESS_SHAPES},
+            "calibrate": {(ct, n): np.asarray(models[ct].calibrate(_frames(4, n)))
+                          for ct, n in CALIBRATE_CASES}}
+
+
+def _jax_lm_job():
+    """Per LM scene: the fields JAX makes eagerly (the observations) and
+    its LM's result on them, as numpy."""
+    out = {}
+    for name in LM_SCENES:
+        model, h, w, focal, rolls, pitches, k1 = _scene(name)
+        ups = np.stack([np.asarray(jf.up_field(h, w, focal, r, p, k1=k1, model=model))
+                        for r, p in zip(rolls, pitches)])
+        lats = np.stack([np.asarray(jf.latitude_field(h, w, focal, r, p, k1=k1, model=model))
+                         for r, p in zip(rolls, pitches)])
+        ref = jgc.calibrate_from_fields(ups, lats, focal_init=float(w), model=model)
+        out[name] = ups, lats, {k: np.asarray(getattr(ref, k))
+                                for k in ("roll", "pitch", "focal", "k1", "cost", "n_iters")}
+    return out
+
+
+_JAX_NET = BackgroundJax({"net": (_jax_net_job, ())})
+_JAX_LM = BackgroundJax({"lm": (_jax_lm_job, ())})
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_references():
+    _JAX_NET.start()
+    _JAX_LM.start()
+    yield
+    _JAX_LM.stop()
+    _JAX_NET.stop()
 
 
 # ------------------------------------------------------------------ fields
@@ -160,87 +237,7 @@ def test_converter_round_trip(weights):
         assert back[k].dtype == torch.float32 and np.array_equal(back[k].numpy(), v), k
 
 
-def test_network_matches_jax(weights, jax_models):
-    _, variables, _ = weights
-    m = _torch_model(weights, "pinhole")
-    x = np.random.default_rng(2).random((1, 64, 96, 3)).astype(np.float32)
-    ref = jax_models["pinhole"]._forward(variables, jnp.asarray(x))
-    with torch.no_grad():
-        got = m.net(torch.from_numpy(x).permute(0, 3, 1, 2), m.bases)
-    got["up_field"] = got["up_field"].permute(0, 2, 3, 1)
-    assert set(got) == set(ref)
-    for key in ref:
-        assert got[key].shape == ref[key].shape, key
-        np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]), rtol=0, atol=1e-4,
-                                   err_msg=key)
-
-
-# ------------------------------------------------------------------ the LM
-
-
-def _scene(name):
-    """(model, h, w, focal, rolls, pitches, k1) of ``tests/test_geocalib.py``'s
-    recovery scenes."""
-    if name == "focal_and_gravity":
-        return "pinhole", 24, 32, 40.0, [0.25], [-0.15], None
-    if name == "shared_intrinsics":
-        return "pinhole", 20, 24, 30.0, [0.1, -0.2, 0.3], [-0.1, 0.15, 0.05], None
-    model = name.removeprefix("k1_")
-    return model, 24, 40, 36.0, [0.15], [-0.1], K1[model]
-
-
-@pytest.mark.parametrize("name", ["focal_and_gravity", "shared_intrinsics", "k1_simple_radial",
-                                  "k1_simple_divisional", "k1_simple_mei"])
-def test_lm_calibrate(name):
-    model, h, w, focal, rolls, pitches, k1 = _scene(name)
-    ups = np.stack([np.asarray(jf.up_field(h, w, focal, r, p, k1=k1, model=model))
-                    for r, p in zip(rolls, pitches)])
-    lats = np.stack([np.asarray(jf.latitude_field(h, w, focal, r, p, k1=k1, model=model))
-                     for r, p in zip(rolls, pitches)])
-    ref = jgc.calibrate_from_fields(ups, lats, focal_init=float(w), model=model)
-    got = tgc.calibrate_from_fields(ups, lats, focal_init=float(w), model=model)
-    if model == "simple_divisional":
-        # The divisional model's f32 fields cancel in 1 − √(1 − 4k1r²):
-        # XLA's fused evaluation inside the LM and its eager one (which
-        # made the observed fields) differ by ~1e-5, so JAX's cost stalls
-        # at ~1e-8, where the stop's 1e-8 cannot tell steps apart; it
-        # stops after 13 steps on this host, the port (whose fields match
-        # the eager ones) after 5.  Both stop on that floor, at the same
-        # parameters.
-        assert max(float(got.cost), float(ref.cost)) < 1e-7
-    else:
-        assert got.n_iters == int(ref.n_iters)
-    for key in ("roll", "pitch", "focal", "k1"):
-        np.testing.assert_allclose(getattr(got, key).numpy(), np.asarray(getattr(ref, key)),
-                                   rtol=1e-4, atol=1e-7, err_msg=key)
-    # the JAX package's own recovery bounds
-    distorted = model != "pinhole"
-    assert abs(float(got.focal) - focal) / focal < (0.05 if distorted else 0.02)
-    np.testing.assert_allclose(got.roll.numpy(), rolls, atol=0.02 if distorted else 0.01)
-    np.testing.assert_allclose(got.pitch.numpy(), pitches, atol=0.02 if distorted else 0.01)
-    if distorted:
-        assert abs(float(got.k1) - k1) < 0.05
-
-
 # --------------------------------------------------------- GeoCalib itself
-
-
-@pytest.mark.parametrize("shape", [(FRAME_H, FRAME_W), (100, 150)])
-def test_preprocess_matches_cv2(weights, jax_models, shape):
-    rgb = _frames(3, 1, *shape)[0]
-    ref = jax_models["pinhole"]._preprocess(rgb)
-    got = _torch_model(weights, "pinhole")._preprocess(rgb)[0].permute(1, 2, 0)
-    assert got.shape == ref.shape == (64, 96, 3)
-    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
-
-
-@pytest.mark.parametrize("camera_type,n_frames", [("pinhole", 3), ("simple_mei", 1)])
-def test_calibrate_matches_jax(weights, jax_models, camera_type, n_frames):
-    frames = _frames(4, n_frames)
-    ref = jax_models[camera_type].calibrate(frames)
-    got = _torch_model(weights, camera_type).calibrate(frames)
-    assert got.shape == ref.shape == ((4,) if camera_type == "pinhole" else (5,))
-    np.testing.assert_allclose(got, ref, rtol=1e-4)
 
 
 class _FakeGeoCalib:
@@ -342,7 +339,7 @@ def test_zoo_reads_pth_and_flax_npz(weights, tmp_path, monkeypatch):
     monkeypatch.setenv("VIPE_WEIGHTS_DIR", str(tmp_path))
     assert zoo.load_state_dict("geocalib_pinhole") is None
     with pytest.raises(NotImplementedError):
-        zoo.load_state_dict("unidepth_l")
+        zoo.load_state_dict("dav2_vitl")
     torch.save({"model": {f"module.{k}": torch.from_numpy(v) for k, v in sd.items()}},
                tmp_path / "geocalib_distorted.pth")
     flat = {}
@@ -372,3 +369,64 @@ def test_segment_sum_equals_index_add(rows, tail, n):
     ref = torch.zeros((n,) + tail).index_add_(0, idx, x)
     got = segment_sum(x, idx, n)
     assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+# ------------------------------------ against the JAX references
+
+
+def test_network_matches_jax(weights):
+    m = _torch_model(weights, "pinhole")
+    with torch.no_grad():
+        got = m.net(torch.from_numpy(_net_input()).permute(0, 3, 1, 2), m.bases)
+    ref = _JAX_NET.result("net")["net"]
+    got["up_field"] = got["up_field"].permute(0, 2, 3, 1)
+    assert set(got) == set(ref)
+    for key in ref:
+        assert got[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(ref[key]), rtol=0, atol=1e-4,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("name", LM_SCENES)
+def test_lm_calibrate(name):
+    model, h, w, focal, rolls, pitches, k1 = _scene(name)
+    ups, lats, ref = _JAX_LM.result("lm")[name]
+    got = tgc.calibrate_from_fields(ups, lats, focal_init=float(w), model=model)
+    if model == "simple_divisional":
+        # The divisional model's f32 fields cancel in 1 − √(1 − 4k1r²):
+        # XLA's fused evaluation inside the LM and its eager one (which
+        # made the observed fields) differ by ~1e-5, so JAX's cost stalls
+        # at ~1e-8, where the stop's 1e-8 cannot tell steps apart; it
+        # stops after 13 steps on this host, the port (whose fields match
+        # the eager ones) after 5.  Both stop on that floor, at the same
+        # parameters.
+        assert max(float(got.cost), float(ref["cost"])) < 1e-7
+    else:
+        assert got.n_iters == int(ref["n_iters"])
+    for key in ("roll", "pitch", "focal", "k1"):
+        np.testing.assert_allclose(getattr(got, key).numpy(), ref[key],
+                                   rtol=1e-4, atol=1e-7, err_msg=key)
+    # the JAX package's own recovery bounds
+    distorted = model != "pinhole"
+    assert abs(float(got.focal) - focal) / focal < (0.05 if distorted else 0.02)
+    np.testing.assert_allclose(got.roll.numpy(), rolls, atol=0.02 if distorted else 0.01)
+    np.testing.assert_allclose(got.pitch.numpy(), pitches, atol=0.02 if distorted else 0.01)
+    if distorted:
+        assert abs(float(got.k1) - k1) < 0.05
+
+
+@pytest.mark.parametrize("shape", PREPROCESS_SHAPES)
+def test_preprocess_matches_cv2(weights, shape):
+    rgb = _frames(3, 1, *shape)[0]
+    got = _torch_model(weights, "pinhole")._preprocess(rgb)[0].permute(1, 2, 0)
+    ref = _JAX_NET.result("net")["preprocess"][shape]
+    assert got.shape == ref.shape == (64, 96, 3)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("camera_type,n_frames", CALIBRATE_CASES)
+def test_calibrate_matches_jax(weights, camera_type, n_frames):
+    got = _torch_model(weights, camera_type).calibrate(_frames(4, n_frames))
+    ref = _JAX_NET.result("net")["calibrate"][camera_type, n_frames]
+    assert got.shape == ref.shape == ((4,) if camera_type == "pinhole" else (5,))
+    np.testing.assert_allclose(got, ref, rtol=1e-4)

@@ -19,8 +19,10 @@
   rig, GT-flow oracle), cut to 6 frames (warm-up 4, then tracking, the
   backend and the filler): equal keyframes; trajectory, rig, intrinsics
   and map within 1e-4; BA residual under 1e-6.  The JAX run is made once,
-  in a second process (``BackgroundJax``) started by the module's first
-  test, and shared.  Then the port alone on the full 10 frames with
+  in a spawned process (``BackgroundJax``) started by the module's first
+  test, and shared; the JAX BA solves and graph rounds run in a second
+  one, and their tests come after the port's own.  Then the port alone
+  on the full 10 frames with
   ``optimize_rig_rotation``: unaligned ATE under 0.05 against ground truth
   and view 0's rig at identity within 1e-6.
 * the pipeline's per-view artifacts beside ``vipe_tpu``'s for the same
@@ -151,10 +153,8 @@ def _rig_ba_problem():
                 pose_mask=np.asarray([False, False] + [True] * (n - 2)))
 
 
-@pytest.mark.parametrize("optimize_rig", [False, True])
-def test_ba_solve_mv_matches_jax(optimize_rig):
-    """Rig off: disparities and the shared focal move too; rig on: the
-    disparities stay, as in the JAX test, and the rig's rotation moves."""
+def _ba_mv_case(optimize_rig):
+    """(BAConfig keywords, the solve's arguments as numpy) for one case."""
     p = _rig_ba_problem()
     V, n, P = p["V"], p["n"], p["P"]
     kw = dict(ht=p["ht"], wd=p["wd"], max_edges_per_frame=16, n_views=V,
@@ -165,17 +165,18 @@ def test_ba_solve_mv_matches_jax(optimize_rig):
             np.ones(len(p["idx"][0]), bool), p["slot_edge"], p["pose_mask"], disp_mask,
             np.full((n * V, P), 1e-4, np.float32), p["disps_gt"],
             np.zeros(n * V, np.float32))
-    out_j = jba.ba_solve_mv(jba.BAConfig(**kw), *map(jnp.asarray, args),
-                            jnp.int32(12), jnp.float32(1e-5), jnp.float32(1e-4))
-    out_t = tba.ba_solve_mv(tba.BAConfig(**kw), *(_t(a) for a in args), 12, 1e-5, 1e-4)
-    names = ("poses", "rig", "disps", "intrinsics")
-    for name, t, j in zip(names, out_t, out_j):
-        atol = 1e-3 if name == "intrinsics" else 1e-4
-        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=atol, err_msg=name)
-    rig_t = out_t[1].numpy()
-    np.testing.assert_allclose(rig_t[0], np.asarray(p["rig0"][0]), atol=1e-6)
-    moved = np.abs(rig_t[1] - np.asarray(p["rig0"][1])).max()
-    assert (moved > 1e-3) if optimize_rig else (moved == 0.0)
+    return kw, [np.asarray(a) for a in args]
+
+
+def _jax_ba_mv_job():
+    """The JAX solves of both cases, with their arguments, as numpy."""
+    out = {}
+    for optimize_rig in (False, True):
+        kw, args = _ba_mv_case(optimize_rig)
+        res = jba.ba_solve_mv(jba.BAConfig(**kw), *map(jnp.asarray, args),
+                              jnp.int32(12), jnp.float32(1e-5), jnp.float32(1e-4))
+        out[optimize_rig] = kw, args, [np.asarray(r) for r in res]
+    return out
 
 
 # --------------------------------------------------------------- buffer
@@ -258,16 +259,15 @@ RIG2 = np.asarray([[0, 0, 0, 0, 0, 0, 1], [0.2, 0, 0, 0, 0, 0, 1]], np.float32)
 INTR2 = np.asarray([[W, W, W / 2, H / 2], [W * 1.1, W * 1.1, W / 2, H / 2]], np.float32)
 
 
-def _graphs_mv(corr_mode, corr_dtype, n=6, seed=3):
-    """JAX and port 2-view graphs over the same seeded slots and weights:
-    neighbourhood edges (r = 1) and two cross-view edges."""
+ROUND_MODES = (("volume", "bf16"), ("volume", "int8"), ("alt", "bf16"))
+
+
+def _jax_graph_mv(corr_mode, corr_dtype, n=6, seed=3):
+    """The JAX 2-view graph over seeded slots: neighbourhood edges (r = 1)
+    and two cross-view edges."""
     from tests.test_torch_droidnet import jax_droidnet_params
     from vipe_tpu.slam.buffer import GraphBuffer as JBuffer
     from vipe_tpu.slam.factor_graph import FactorGraph as JGraph
-    from vipe_tpu_torch.models.convert import droidnet_state_dict_from_flax
-    from vipe_tpu_torch.models.droidnet import DroidNet
-    from vipe_tpu_torch.slam.buffer import GraphBuffer as TBuffer
-    from vipe_tpu_torch.slam.factor_graph import FactorGraph as TGraph
 
     params = jax_droidnet_params(HT, WD)
     rng = np.random.default_rng(seed)
@@ -280,9 +280,40 @@ def _graphs_mv(corr_mode, corr_dtype, n=6, seed=3):
         jbuf.poses = jbuf.poses.at[k, 0].set(0.1 * k + 0.01 * rng.normal())
         jbuf.disps = jbuf.disps.at[V2 * k: V2 * (k + 1)].add(
             0.1 * jnp.asarray(rng.random((V2, HT, WD)), jnp.float32))
+    jg = JGraph(jbuf, _jax_update_fn(), params, max_factors=16, incremental=True,
+                corr_mode=corr_mode, corr_dtype=corr_dtype)
+    jg.add_neighborhood_factors(0, n, r=1)
+    jg.add_factors([1, 4], [1, 4])
+    return params, jbuf, jg
+
+
+def _jax_rounds_mv_job():
+    """Per mode of ``ROUND_MODES``, host records (``tests/test_torch_slam.py``'s
+    ``_graph_record``, with the expanded rows) of the JAX buffer and graph
+    before and after one ``update`` round; and the DroidNet params."""
+    from tests.test_torch_slam import _graph_record
+
+    out = {}
+    for mode in ROUND_MODES:
+        params, jbuf, jg = _jax_graph_mv(*mode)
+        before = _graph_record(jbuf, jg)
+        before[1].exp = np.array(jg.exp)
+        jg.update(use_inactive=True)
+        out[mode] = before, _graph_record(jbuf, jg)
+    out["params"] = jax.tree_util.tree_map(np.asarray, params)
+    return out
+
+
+def _torch_graph_mv(params, jbuf, corr_mode, corr_dtype, n=6):
+    """The port's 2-view buffer and graph holding a JAX record's state and
+    the same weights, with the same edges."""
+    from vipe_tpu_torch.models.convert import droidnet_state_dict_from_flax
+    from vipe_tpu_torch.models.droidnet import DroidNet
+    from vipe_tpu_torch.slam.buffer import GraphBuffer as TBuffer
+    from vipe_tpu_torch.slam.factor_graph import FactorGraph as TGraph
 
     model = DroidNet()
-    model.load_state_dict(droidnet_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params)))
+    model.load_state_dict(droidnet_state_dict_from_flax(params))
     _, _, uf = tsystem.droidnet_fns(model.to(torch.bfloat16).eval())
     tbuf = TBuffer(height=H, width=W, buffer_size=16, n_views=V2, rig=RIG2)
 
@@ -296,55 +327,11 @@ def _graphs_mv(corr_mode, corr_dtype, n=6, seed=3):
     tbuf.intrinsics = f32(jbuf.intrinsics)
     for name in ("fmaps", "nets", "inps"):
         getattr(tbuf, name)[:nv] = f32(getattr(jbuf, name)[:nv]).to(torch.bfloat16)
-
-    graphs = (JGraph(jbuf, _jax_update_fn(), params, max_factors=16, incremental=True,
-                     corr_mode=corr_mode, corr_dtype=corr_dtype),
-              TGraph(tbuf, uf, max_factors=16, incremental=True,
-                     corr_mode=corr_mode, corr_dtype=corr_dtype))
-    for g in graphs:
-        g.add_neighborhood_factors(0, n, r=1)
-        g.add_factors([1, 4], [1, 4])
-    return jbuf, tbuf, graphs
-
-
-@pytest.mark.parametrize("corr_mode,corr_dtype", [("volume", "bf16"), ("volume", "int8"),
-                                                  ("alt", "bf16")])
-def test_factor_graph_update_round_mv_matches_jax(corr_mode, corr_dtype):
-    """Expanded edges, their correlation state (volumes to one bf16 ulp,
-    int8 to one step, packed features exactly) and one round's result."""
-    n = 6
-    jbuf, tbuf, (jg, tg) = _graphs_mv(corr_mode, corr_dtype, n=n)
-    rows = jg.n_edges * V2
-    assert tg.n_edges == jg.n_edges and len(tg.exp) == rows
-    np.testing.assert_array_equal(tg.exp, jg.exp[:rows])
-    cross = tg.exp[tg.exp[:, 0] == tg.exp[:, 3]]
-    assert len(cross) == 4 and (cross[:, 1] != cross[:, 4]).all()
-    for lvl, (j, t) in enumerate(zip(jg.corr_pyr, tg.corr_pyr)):
-        ref = np.asarray(j[:rows].astype(jnp.float32))
-        if tg.corr_alt:
-            np.testing.assert_array_equal(t.float().numpy(), ref)
-        elif tg.corr_q:
-            assert np.abs(t.float().numpy() - ref).max() <= 1
-            np.testing.assert_allclose(tg.corr_scale[lvl].numpy(),
-                                       np.asarray(jg.corr_scale[lvl][:rows]), rtol=2 ** -8)
-        else:
-            np.testing.assert_allclose(t.float().numpy(), ref, rtol=2 ** -8, atol=1e-6)
-
-    with torch.no_grad():
-        tg.update(use_inactive=True)
-    jg.update(use_inactive=True)
-    nv = n * V2
-    pairs = {
-        "poses": (tbuf.poses[:n], jbuf.poses[:n]),
-        "disps": (tbuf.disps[:nv], jbuf.disps[:nv]),
-        "target": (tg.target, jg.target[:rows]),
-        "weight": (tg.weight, jg.weight[:rows]),
-        "damping": (tg.damping[:nv], jg.damping[:nv]),
-    }
-    for key, (t, j) in pairs.items():
-        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=2e-2,
-                                   err_msg=f"mismatch in {key}")
-    np.testing.assert_array_equal(tg.age, jg.age[: jg.n_edges])
+    tg = TGraph(tbuf, uf, max_factors=16, incremental=True, corr_mode=corr_mode,
+                corr_dtype=corr_dtype)
+    tg.add_neighborhood_factors(0, n, r=1)
+    tg.add_factors([1, 4], [1, 4])
+    return tbuf, tg
 
 
 # ------------------------------------------------------ pipeline and entry
@@ -469,6 +456,78 @@ def test_run_entry_writes_per_view_artifacts_on_cpu(tmp_path):
     np.testing.assert_allclose(mats[1][:, :3, 3] - mats[0][:, :3, 3], offset, atol=1e-5)
 
 
+def test_full_rig_scene_with_rig_rotation_recovers_gt():
+    """The port alone on ``tests/test_multiview.py``'s full 10 frames, with
+    the rig's rotation optimised in the global BA: its ATE limit, and
+    view 0 of the rig held at identity."""
+    from vipe_tpu.utils.geometry import ate_rmse
+
+    out, gt, rig = _port_rig_run(RIG_T_FULL, dict(RIG_CFG, optimize_rig_rotation=True))
+    assert out.trajectory.shape == (RIG_T_FULL, 7) and np.isfinite(out.trajectory).all()
+    assert ate_rmse(out.trajectory, gt, align=False) < 0.05
+    np.testing.assert_allclose(out.rig[0], [0, 0, 0, 0, 0, 0, 1], atol=1e-6)
+    assert out.slam_map.xyz.shape[1:] == (HT, WD, 3)
+
+
+# ------------------------------ BA and one GRU round (JAX in the second process)
+
+
+@pytest.mark.parametrize("optimize_rig", [False, True])
+def test_ba_solve_mv_matches_jax(optimize_rig):
+    """Rig off: disparities and the shared focal move too; rig on: the
+    disparities stay, as in the JAX test, and the rig's rotation moves."""
+    kw, args, out_j = _JAX_REFS.result("ba")[optimize_rig]
+    out_t = tba.ba_solve_mv(tba.BAConfig(**kw), *(_t(a) for a in args), 12, 1e-5, 1e-4)
+    names = ("poses", "rig", "disps", "intrinsics")
+    for name, t, j in zip(names, out_t, out_j):
+        atol = 1e-3 if name == "intrinsics" else 1e-4
+        np.testing.assert_allclose(t.numpy(), j, rtol=0, atol=atol, err_msg=name)
+    rig_t, rig0 = out_t[1].numpy(), args[1]
+    np.testing.assert_allclose(rig_t[0], rig0[0], atol=1e-6)
+    moved = np.abs(rig_t[1] - rig0[1]).max()
+    assert (moved > 1e-3) if optimize_rig else (moved == 0.0)
+
+
+@pytest.mark.parametrize("corr_mode,corr_dtype", list(ROUND_MODES))
+def test_factor_graph_update_round_mv_matches_jax(corr_mode, corr_dtype):
+    """Expanded edges, their correlation state (volumes to one bf16 ulp,
+    int8 to one step, packed features exactly) and one round's result."""
+    n = 6
+    rounds = _JAX_REFS.result("rounds")
+    (jbuf, jg), (jbuf1, jg1) = rounds[corr_mode, corr_dtype]
+    tbuf, tg = _torch_graph_mv(rounds["params"], jbuf, corr_mode, corr_dtype, n=n)
+    rows = jg.n_edges * V2
+    assert tg.n_edges == jg.n_edges and len(tg.exp) == rows
+    np.testing.assert_array_equal(tg.exp, jg.exp[:rows])
+    cross = tg.exp[tg.exp[:, 0] == tg.exp[:, 3]]
+    assert len(cross) == 4 and (cross[:, 1] != cross[:, 4]).all()
+    for lvl, (j, t) in enumerate(zip(jg.corr_pyr, tg.corr_pyr)):
+        ref = np.asarray(j[:rows].astype(jnp.float32))
+        if tg.corr_alt:
+            np.testing.assert_array_equal(t.float().numpy(), ref)
+        elif tg.corr_q:
+            assert np.abs(t.float().numpy() - ref).max() <= 1
+            np.testing.assert_allclose(tg.corr_scale[lvl].numpy(),
+                                       np.asarray(jg.corr_scale[lvl][:rows]), rtol=2 ** -8)
+        else:
+            np.testing.assert_allclose(t.float().numpy(), ref, rtol=2 ** -8, atol=1e-6)
+
+    with torch.no_grad():
+        tg.update(use_inactive=True)
+    nv = n * V2
+    pairs = {
+        "poses": (tbuf.poses[:n], jbuf1.poses[:n]),
+        "disps": (tbuf.disps[:nv], jbuf1.disps[:nv]),
+        "target": (tg.target, jg1.target[:rows]),
+        "weight": (tg.weight, jg1.weight[:rows]),
+        "damping": (tg.damping[:nv], jg1.damping[:nv]),
+    }
+    for key, (t, j) in pairs.items():
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=2e-2,
+                                   err_msg=f"mismatch in {key}")
+    np.testing.assert_array_equal(tg.age, jg1.age[: jg1.n_edges])
+
+
 # ------------------------------------------------------ the slice, oracle
 
 RIG_T = 6          # frames of the JAX-parity scene
@@ -590,12 +649,16 @@ def _jax_rig_job():
 
 
 _JAX_JOBS = BackgroundJax({"rig": (_jax_rig_job, ())})
+# the references of the rig BA solves and of the graph rounds
+_JAX_REFS = BackgroundJax({"ba": (_jax_ba_mv_job, ()), "rounds": (_jax_rounds_mv_job, ())})
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _jax_references():
     _JAX_JOBS.start()
+    _JAX_REFS.start()
     yield
+    _JAX_REFS.stop()
     _JAX_JOBS.stop()
 
 
@@ -605,19 +668,6 @@ def rig_runs():
     background since the module's first test)."""
     out_t, gt, _ = _port_rig_run(RIG_T, RIG_CFG)
     return _JAX_JOBS.result("rig"), out_t, gt
-
-
-def test_full_rig_scene_with_rig_rotation_recovers_gt():
-    """The port alone on ``tests/test_multiview.py``'s full 10 frames, with
-    the rig's rotation optimised in the global BA: its ATE limit, and
-    view 0 of the rig held at identity."""
-    from vipe_tpu.utils.geometry import ate_rmse
-
-    out, gt, rig = _port_rig_run(RIG_T_FULL, dict(RIG_CFG, optimize_rig_rotation=True))
-    assert out.trajectory.shape == (RIG_T_FULL, 7) and np.isfinite(out.trajectory).all()
-    assert ate_rmse(out.trajectory, gt, align=False) < 0.05
-    np.testing.assert_allclose(out.rig[0], [0, 0, 0, 0, 0, 0, 1], atol=1e-6)
-    assert out.slam_map.xyz.shape[1:] == (HT, WD, 3)
 
 
 class TestRigOracleParity:

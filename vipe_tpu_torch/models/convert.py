@@ -1,8 +1,9 @@
-"""Flax → PyTorch weight conversion for DroidNet and GeoCalib.
+"""Flax → PyTorch weight conversion for DroidNet, GeoCalib and UniDepth.
 
-``droidnet_state_dict_from_flax`` and ``geocalib_state_dict_from_flax`` are
-the inverses of ``vipe_tpu.models.convert.convert_droidnet`` and
-``convert_geocalib``: they turn the JAX package's param trees (given as
+``droidnet_state_dict_from_flax``, ``geocalib_state_dict_from_flax`` and
+``unidepth_state_dict_from_flax`` are the inverses of
+``vipe_tpu.models.convert.convert_droidnet``, ``convert_geocalib`` and
+``convert_unidepth``: they turn the JAX package's param trees (given as
 numpy arrays) into this port's state dicts, in ViPE's key layout, so both
 packages can run the same weights.  Conv kernels go from flax
 ``(kh, kw, I, O)`` to torch ``(O, I, kh, kw)``.
@@ -133,4 +134,114 @@ def geocalib_state_dict_from_flax(variables) -> dict:
     _put(sd, f"{pd}.up_head.linear_pred_up", p["linear_pred_up"])
     _ham_head(sd, f"{pd}.latitude_head.decoder", p["lat_decoder"])
     _put(sd, f"{pd}.latitude_head.linear_pred_latitude", p["linear_pred_latitude"])
+    return sd
+
+
+def _put_linear(sd: dict, key: str, entry: dict):
+    """A dense layer: flax ``(in, out)`` kernel → torch ``(out, in)``; the
+    bias is optional (UniDepth's attention projections have none)."""
+    sd[f"{key}.weight"] = _tensor(np.asarray(entry["kernel"], np.float32).T)
+    if "bias" in entry:
+        sd[f"{key}.bias"] = _tensor(entry["bias"])
+
+
+def _put_conv_transpose(sd: dict, key: str, entry: dict):
+    """flax ``ConvTranspose`` (kh, kw, I, O) → torch ``ConvTranspose2d``
+    (I, O, kh, kw), spatially flipped back (the JAX converter flips it)."""
+    k = np.asarray(entry["kernel"], np.float32).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    sd[f"{key}.weight"] = torch.from_numpy(k.copy())
+    sd[f"{key}.bias"] = _tensor(entry["bias"])
+
+
+def vit_state_dict_from_flax(params, prefix: str = "") -> dict:
+    """``vipe_tpu``'s ``DinoViT`` params → the port's ``DinoViT`` state dict,
+    its keys under ``prefix`` (inverse of ``convert_dinov2_vit``)."""
+    p = params["params"] if "params" in params else params
+    sd: dict = {}
+    pf = f"{prefix}." if prefix else ""
+    _put(sd, f"{pf}patch_embed.proj", p["patch_embed"])
+    if "alpha_proj" in p:
+        _put(sd, f"{pf}patch_embed.alpha_proj", p["alpha_proj"])
+    for name in ("cls_token", "pos_embed", "register_tokens"):
+        if name in p:
+            sd[f"{pf}{name}"] = _tensor(p[name])
+    _put_norm(sd, f"{pf}norm", p["norm"])
+    i = 0
+    while f"block{i}" in p:
+        b, pb = f"{pf}blocks.{i}", p[f"block{i}"]
+        _put_norm(sd, f"{b}.norm1", pb["norm1"])
+        _put_linear(sd, f"{b}.attn.qkv", pb["attn"]["qkv"])
+        _put_linear(sd, f"{b}.attn.proj", pb["attn"]["proj"])
+        sd[f"{b}.ls1.gamma"] = _tensor(pb["ls1"]["gamma"])
+        _put_norm(sd, f"{b}.norm2", pb["norm2"])
+        _put_linear(sd, f"{b}.mlp.fc1", pb["mlp"]["fc1"])
+        _put_linear(sd, f"{b}.mlp.fc2", pb["mlp"]["fc2"])
+        sd[f"{b}.ls2.gamma"] = _tensor(pb["ls2"]["gamma"])
+        i += 1
+    return sd
+
+
+def _put_mlp_ud(sd: dict, key: str, p: dict):
+    _put_norm(sd, f"{key}.norm", p["norm"])
+    _put_linear(sd, f"{key}.proj1", p["proj1"])
+    _put_linear(sd, f"{key}.proj2", p["proj2"])
+
+
+def _put_attn_ud(sd: dict, key: str, p: dict):
+    for name in ("norm_attnx", "norm_attnctx"):
+        _put_norm(sd, f"{key}.{name}", p[name])
+    for name in ("kv", "q", "out"):
+        _put_linear(sd, f"{key}.{name}", p[name])
+    if "ls1_gamma" in p:
+        sd[f"{key}.ls1.gamma"] = _tensor(p["ls1_gamma"])
+        sd[f"{key}.ls2.gamma"] = _tensor(p["ls2_gamma"])
+    _put_mlp_ud(sd, f"{key}.mlp", p["mlp"])
+
+
+def unidepth_state_dict_from_flax(params) -> dict:
+    """``{"vit", "decoder"}`` of ``vipe_tpu``'s ``UniDepthNet`` (numpy
+    leaves) → the port's ``UniDepthNet`` state dict (inverse of
+    ``convert_unidepth``)."""
+    sd = vit_state_dict_from_flax(params["vit"], "pixel_encoder")
+    p = params["decoder"]["params"]
+    d = "pixel_decoder"
+    i = 0
+    while f"input_adapter{i}" in p:
+        _put_linear(sd, f"{d}.input_adapter.input_adapters.{i}", p[f"input_adapter{i}"])
+        _put_linear(sd, f"{d}.camera_token_adapter.input_adapters.{i}",
+                    p[f"camera_token_adapter{i}"])
+        i += 1
+    cam, cl = p["camera_layer"], f"{d}.camera_layer"
+    sd[f"{cl}.latents_pos"] = _tensor(cam["latents_pos"])
+    _put_mlp_ud(sd, f"{cl}.project", cam["project"])
+    _put_attn_ud(sd, f"{cl}.aggregate1", cam["aggregate1"])
+    _put_attn_ud(sd, f"{cl}.aggregate2", cam["aggregate2"])
+    _put_mlp_ud(sd, f"{cl}.out_pinhole", cam["out_pinhole"])
+
+    dp, dl = p["depth_layer"], f"{d}.depth_layer"
+    _put_linear(sd, f"{dl}.to_latents", dp["to_latents"])
+    lvl = 0
+    while f"prompt_camera{lvl}" in dp:
+        _put_attn_ud(sd, f"{dl}.prompt_camera.{lvl}.layers.0", dp[f"prompt_camera{lvl}"]["block0"])
+        lvl += 1
+    stage = 0
+    while f"process_features{stage}" in dp:
+        _put_conv_transpose(sd, f"{dl}.process_features.{stage}", dp[f"process_features{stage}"])
+        ups = dp[f"ups{stage}"]
+        j = 0
+        while f"rcu{j}" in ups:
+            u = f"{dl}.ups.{stage}.convs.{j}"
+            _put(sd, f"{u}.conv1", ups[f"rcu{j}"]["conv1"])
+            _put(sd, f"{u}.conv2", ups[f"rcu{j}"]["conv2"])
+            sd[f"{u}.gamma"] = _tensor(ups[f"rcu{j}"]["gamma"]).reshape(1, -1, 1, 1)
+            j += 1
+        _put(sd, f"{dl}.ups.{stage}.up.0", ups["up_conv"])
+        stage += 1
+    last = stage - 1
+    for head, mlp in (("depth", f"depth_mlp.{last}"), ("confidence", "confidence_mlp")):
+        _put_norm(sd, f"{dl}.{mlp}.0", dp[f"{head}_mlp_norm"])
+        _put_linear(sd, f"{dl}.{mlp}.1", dp[f"{head}_mlp_lin"])
+        _put(sd, f"{dl}.to_{head}_lr", dp[f"to_{head}_lr"])
+        _put(sd, f"{dl}.to_{head}_hr.0", dp[f"to_{head}_hr0"])
+        _put(sd, f"{dl}.to_{head}_hr.2", dp[f"to_{head}_hr2"])
     return sd

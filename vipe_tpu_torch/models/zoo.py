@@ -1,5 +1,5 @@
 """Local weight registry (port of ``vipe_tpu/models/zoo.py``, as far as the
-port's modules go).
+port's modules go): ``geocalib_pinhole|distorted`` and ``unidepth_s|b|l``.
 
 Weights are read from ``$VIPE_WEIGHTS_DIR`` (default
 ``~/.cache/vipe_weights``), nothing is downloaded.  Per family the first of
@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 _EXTS = (".npz", ".pth", ".pt", ".ckpt", ".bin")
-FAMILIES = ("geocalib_pinhole", "geocalib_distorted")
+FAMILIES = ("geocalib_pinhole", "geocalib_distorted", "unidepth_s", "unidepth_b", "unidepth_l")
 
 
 def weights_dir() -> pathlib.Path:
@@ -62,10 +62,12 @@ def load_state_dict(family: str) -> Optional[dict]:
     if path is None:
         return None
     if path.suffix == ".npz":
-        from .convert import geocalib_state_dict_from_flax
+        from . import convert
 
+        from_flax = (convert.unidepth_state_dict_from_flax if family.startswith("unidepth")
+                     else convert.geocalib_state_dict_from_flax)
         with np.load(path) as z:
-            return geocalib_state_dict_from_flax(_unflatten({k: z[k] for k in z.files}))
+            return from_flax(_unflatten({k: z[k] for k in z.files}))
     obj = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("state_dict", "model", "model_state_dict", "module"):
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):

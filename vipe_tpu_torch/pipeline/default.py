@@ -7,10 +7,10 @@ trajectory ``c2w · rig[v]`` and its intrinsics.
 ``init.intrinsics`` is ``fov``, ``gt`` (the stream's own) or ``geocalib``
 (calibrated from sampled frames of the raw stream, for ``init.camera_type``;
 each view of a rig on its own stream); the keyframe depth prior of
-``slam.keyframe_depth`` is built by the depth factory, which holds the
-``constant-<depth>`` prior so far.  The other learned priors (depth
-alignment, TrackAnything instances) are not ported yet; asking for one
-raises ``NotImplementedError``.
+``slam.keyframe_depth`` (``constant-<depth>`` or ``unidepth-<s|b|l>``) is
+built by the depth factory on the pipeline's device.  The other learned
+priors (depth alignment, TrackAnything instances) are not ported yet;
+asking for one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ class DefaultAnnotationPipeline(Pipeline):
             return None
         from ..priors.depth.factory import make_depth_model
 
-        return make_depth_model(kd)
+        return make_depth_model(kd, device=self.device)
 
     def _init_stream(self, video_stream):
         """The stream with the init processors, cached for SLAM's two passes

@@ -16,6 +16,10 @@ from typing import Optional
 
 import torch
 
+# ImageNet statistics that the ViT-based priors normalise their input with
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
 
 class DepthType(Enum):
     METRIC_DEPTH = "metric_depth"

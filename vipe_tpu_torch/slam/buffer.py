@@ -283,12 +283,18 @@ class GraphBuffer:
             frames = range(self.n_frames)
         else:
             frames = [frame_idx]
-        focal = float(self.intrinsics[0])
+        intr_row = self.intrinsics if self.intrinsics.ndim == 1 else self.intrinsics[0]
+        on_device = hasattr(depth_model, "estimate_sens_device")
         for k in frames:
             with profiling.stage("keyframe_depth"):
-                depth = depth_model.estimate_depth(self.images[k].float() / 255.0,
-                                                   focal_length=focal)
-                self.disps_sens[k] = _depth_to_sens(torch.as_tensor(depth, device=self.device))
+                if on_device:
+                    # image → disparity prior on the device, the focal read
+                    # there from the live intrinsics: no host round trip
+                    self.disps_sens[k] = depth_model.estimate_sens_device(self.images[k], intr_row)
+                else:
+                    depth = depth_model.estimate_depth(self.images[k].float() / 255.0,
+                                                       focal_length=float(intr_row[0]))
+                    self.disps_sens[k] = _depth_to_sens(torch.as_tensor(depth, device=self.device))
         self.last_depth_intrinsics = self.intrinsics.clone()
 
     # ---------------------------------------------------------------- mapping

@@ -193,6 +193,8 @@ class SLAMSystem:
             raw = [video_stream]
         V = len(raw)
         if V > 1 and self.metric_depth is not None:
+            # the reference indexes the rig's (frame, view) slots by frame
+            # here, so it cannot hold a port to account (ROADMAP.md queue 3)
             raise NotImplementedError("slam.keyframe_depth with a rig is not ported yet")
         resizers = [StandardResizeStreamProcessor(c.get("resize_area", 384 * 512))
                     for _ in raw]
