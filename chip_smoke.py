@@ -49,9 +49,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at 532×952 in bf16 and f32 against the operations it counts; then
    drives the volume main path twice with ``slam.keyframe_depth:
    unidepth-l`` and checks every keyframe's disparity prior;
-9. holds the two volume runs, the two MEI runs and the two UniDepth runs
-   to each other: equal keyframes, removals and K1 launches, bit-equal
-   trajectories and intrinsics;
+9. the post-SLAM depth stage: holds VDA-S, VDA-L (one 32-frame window)
+   and PriorDA's conditioned fine DAv2-B on the card to the CPU in IEEE
+   f32 at a small input and VDA's bf16 autocast to its f32 at 518×924,
+   and times them against their FLOP bounds; drives the 720p video twice
+   with full.yaml's depth settings (``slam.keyframe_depth: unidepth-l``,
+   ``post.depth_align_model: adaptive_unidepth-l_svda``), records the
+   branch the map's coverage chose, the depth stages and the KNN's card
+   time per frame, and checks every frame's depth; then runs the
+   processor alone on that run's SLAM output with the threshold set so
+   that the other branch (metric or PriorDA) runs;
+   holds the two volume runs, the two MEI runs, the two UniDepth runs and
+   the two depth runs to each other: equal keyframes, removals and K1
+   launches, bit-equal trajectories and intrinsics (and depths);
 10. GeoCalib: fits the LM on the card to exact up and latitude fields at
    320×544 (pinhole over three frames, simple_mei with k1) and holds it to
    ground truth; holds ``GeoCalibNet`` (seeded weights) on the card to
@@ -64,8 +74,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    warm and with a cold L2 cache, and holds both against their plain
    versions on a 720p rig edge set with cross-view edges (the main path
    proposes none), in volume/bf16, volume/int8 and alt;
-12. prints the ``kernels`` JSON line (K1's launches on the GeoCalib and
-    the UniDepth paths too) and, last, the ``ok`` JSON line.
+12. prints the ``kernels`` JSON line (K1's launches on the GeoCalib, the
+    UniDepth and the depth paths too) and, last, the ``ok`` JSON line.
 
 Kernel times come from CUDA events: the mean of back-to-back launches
 (warm L2) as ``ms``, and the median of launches each preceded by a 128 MB
@@ -989,11 +999,12 @@ def cross_view_phase():
 
 
 def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
-                    init=None, rig=False):
+                    init=None, rig=False, post=None, keep=None):
     """One run of the main path with ``slam_cfg`` over ``n_frames`` of the
     seeded stream (``stream_kw``: its intrinsics and mask band), or with
-    ``rig`` of the seeded rig's views.  ``required`` names the launch
-    counts that must be > 0."""
+    ``rig`` of the seeded rig's views; ``post``: the pipeline's post
+    section (the depth stage).  ``required`` names the launch counts that
+    must be > 0.  ``keep``: a dict that gets the pipeline's output."""
     import gc
 
     import torch
@@ -1013,7 +1024,7 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
     pipe = DefaultAnnotationPipeline(
         init=init or {"intrinsics": "fov", "fov_deg": 60.0},
         slam={"optimize_intrinsics": True, "filter_thresh": thresh, **slam_cfg},
-        output={"path": None}, device="cuda", return_payload=True,
+        post=post or {}, output={"path": None}, device="cuda", return_payload=True,
     )
     n_intr = cam.CameraType(slam_cfg.get("camera_type", "pinhole")).intrinsics_dim()
     gc.collect()
@@ -1035,6 +1046,8 @@ def main_path_phase(label, slam_cfg, n_frames, thresh, required, stream_kw=None,
     stages = profiling.snapshot(reset=True)
 
     slam_out = out.payload["slam_output"]
+    if keep is not None:
+        keep["output"] = out
     traj = np.asarray(out.trajectory)
     if traj.shape != (n_frames, 7) or not np.isfinite(traj).all():
         raise AssertionError(f"{label} main path: trajectory {traj.shape} not finite / wrong shape")
@@ -1340,20 +1353,449 @@ def unidepth_main_path_phase(label, thresh):
     return rec, captured
 
 
+# ------------------------------------------------------- post-SLAM depth
+
+DEPTH_ALIGN = "adaptive_unidepth-l_svda"  # configs/pipeline/full.yaml's post stage
+# VDA's and PriorDA's input for a 720p frame: short side 518, sides multiples of 14
+VDA_H, VDA_W = 518, 924
+DEPTH_SMALL = (70, 98)  # the card-against-CPU check's input
+DEPTH_NET_RTOL = 1e-3  # card against CPU, both IEEE f32, relative to the largest value
+DEPTH_BF16_RTOL = 5e-2  # bf16 against f32 on the card, relative to the largest value
+PRIORDA_CHECK_FRAMES = 2  # frames of the first PriorDA chunk held card against CPU
+COND_MAX = 1e3  # a pixel's 2×2 solve is held strictly below this condition number
+PRIORDA_STUB_RTOL = 1e-4  # the stub coarse net's completion, card against CPU
+
+
+@contextlib.contextmanager
+def depth_spy():
+    """While active, records each ``AdaptiveDepthProcessor``'s branch and
+    coverage score, times every PriorDA KNN on the card (CUDA events
+    around the call) with its query and prompt-point counts, and keeps the
+    model, frames and prompts of the first ``PRIORDA_CHECK_FRAMES`` frames
+    that PriorDA completes."""
+    import torch
+
+    from vipe_tpu_torch.pipeline import processors
+    from vipe_tpu_torch.priors.depth import priorda
+
+    orig_decide, orig_knn = processors.AdaptiveDepthProcessor._decide, priorda.knn
+    orig_complete = priorda.PriorDAModel.complete_batch
+    seen = {"decisions": [], "knn": []}
+
+    def complete_batch(self, rgbs, prompt_depths):
+        if "priorda_chunk" not in seen:
+            n = PRIORDA_CHECK_FRAMES
+            seen["priorda_chunk"] = (self, [np.array(r, np.float32) for r in rgbs[:n]],
+                                     [np.array(p, np.float32) for p in prompt_depths[:n]])
+        return orig_complete(self, rgbs, prompt_depths)
+
+    def decide(self, frame):
+        use_metric = orig_decide(self, frame)
+        seen["decisions"].append({"coverage": self.coverage,
+                                  "branch": "metric" if use_metric else "priorda"})
+        return use_metric
+
+    def knn(query, points, k=1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_knn(query, points, k)
+        end.record()
+        end.synchronize()
+        seen["knn"].append({"queries": int(query.shape[0]), "prompt_points": int(points.shape[0]),
+                            "ms": start.elapsed_time(end)})
+        return out
+
+    processors.AdaptiveDepthProcessor._decide, priorda.knn = decide, knn
+    priorda.PriorDAModel.complete_batch = complete_batch
+    try:
+        yield seen
+    finally:
+        processors.AdaptiveDepthProcessor._decide, priorda.knn = orig_decide, orig_knn
+        priorda.PriorDAModel.complete_batch = orig_complete
+
+
+def _depths_record(depths, n_frames, label):
+    """Checks one depth per frame, finite and positive, f32 at the frame
+    size; returns their range and the sha1 of their bits."""
+    if len(depths) != n_frames:
+        raise AssertionError(f"{label}: {len(depths)} depths for {n_frames} frames")
+    for k, d in enumerate(depths):
+        d = np.asarray(d)
+        if d.shape != (MAIN_H, MAIN_W) or d.dtype != np.float32 or not (
+                np.isfinite(d).all() and (d > 0).all()):
+            raise AssertionError(f"{label}: frame {k}'s depth {d.shape} {d.dtype} is not finite "
+                                 "and positive at the frame size")
+    sha = hashlib.sha1()
+    for d in depths:
+        sha.update(np.ascontiguousarray(d).tobytes())
+    return {"min": float(min(np.min(d) for d in depths)),
+            "max": float(max(np.max(d) for d in depths)), "sha1": sha.hexdigest()}
+
+
+def _knn_record(knn_calls, n_frames):
+    if not knn_calls:
+        return None
+    ms = [c["ms"] for c in knn_calls]
+    pts = [c["prompt_points"] for c in knn_calls]
+    return {"frames": len(knn_calls), "of_frames": n_frames, "queries": knn_calls[0]["queries"],
+            "prompt_points_min": min(pts), "prompt_points_max": max(pts),
+            "ms_per_frame_mean": float(np.mean(ms)), "ms_per_frame_max": max(ms)}
+
+
+DEPTH_STAGES = ("vda", "post_metric_depth", "priorda")
+
+
+def depth_main_path_phase(label, thresh, keep):
+    """configs/pipeline/full.yaml's depth settings on the seeded 32-frame
+    720p stream: ``slam.keyframe_depth: unidepth-l`` and
+    ``post.depth_align_model: adaptive_unidepth-l_svda`` (volume, FOV
+    intrinsics, no instances).  Every frame's depth must be finite and
+    positive; records the branch the coverage chose, the score, the depth
+    stages' host seconds and peaks, and the KNN's card time when PriorDA
+    ran.  ``keep`` gets the output and the depths."""
+    with depth_spy() as seen:
+        rec, captured = main_path_phase(label, {"keyframe_depth": "unidepth-l"}, MAIN_FRAMES,
+                                        thresh, ["corr_lookup"],
+                                        post={"depth_align_model": DEPTH_ALIGN}, keep=keep)
+    if len(seen["decisions"]) != 1:
+        raise AssertionError(f"{label}: {len(seen['decisions'])} depth decisions")
+    keep["depths"] = list(keep["output"].depths)
+    keep["priorda_chunk"] = seen.get("priorda_chunk")
+    stages, peaks = rec["stages_host_s"], rec["stage_peak_mem_gib"]
+    rec["depth_align"] = {
+        "model": DEPTH_ALIGN, **seen["decisions"][0],
+        "stages_host_s": {k: stages[k] for k in DEPTH_STAGES if k in stages},
+        "stage_peak_mem_gib": {k: peaks[k] for k in DEPTH_STAGES if k in peaks},
+        "knn": _knn_record(seen["knn"], MAIN_FRAMES),
+        "depth": _depths_record(keep["depths"], MAIN_FRAMES, label)}
+    return rec, captured
+
+
+def depth_other_branch_phase(main_rec, keep):
+    """``AdaptiveDepthProcessor`` called directly on the depth main path's
+    SLAM output and the seeded stream's frames (the SLAM intrinsics on
+    each), with the coverage threshold set so that the branch the main
+    path did not take runs: the metric branch (UniDepth-L, bf16, chunks of
+    8) or PriorDA (DAv2-B coarse at 518×924 in f32, the KNN over the
+    projected map; coarse only without fine weights).  Records host
+    seconds and peaks per stage and the KNN's card time per frame."""
+    import gc
+
+    import torch
+
+    from vipe_tpu_torch.pipeline.processors import AdaptiveDepthProcessor
+    from vipe_tpu_torch.utils import profiling
+
+    slam_out = keep["output"].payload["slam_output"]
+    taken = main_rec["depth_align"]["branch"]
+    thresh = 0.0 if taken == "metric" else 2.0  # a coverage below it takes the metric branch
+    frames = []
+    for f in synth_stream(MAIN_FRAMES):
+        f.intrinsics = np.asarray(slam_out.intrinsics, np.float32)
+        frames.append(f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiling.snapshot(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    with stage_peaks() as (peaks, top), depth_spy() as seen:
+        proc = AdaptiveDepthProcessor(DEPTH_ALIGN, slam_output=slam_out, coverage_thresh=thresh,
+                                      device="cuda")
+        t0 = time.perf_counter()
+        depths = [f.metric_depth for f in proc.update_iterator(iter(frames))]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    branch = "metric" if proc.use_metric else "priorda"
+    if branch == taken:
+        raise AssertionError(f"the forced run took the {branch} branch again "
+                             f"(coverage {proc.coverage}, threshold {thresh})")
+    if branch == "priorda" and not seen["knn"]:
+        raise AssertionError("the PriorDA branch ran no KNN: the projected map is empty")
+    keep["priorda_chunk"] = keep["priorda_chunk"] or seen.get("priorda_chunk")
+    return {"branch": branch, "coverage": proc.coverage, "coverage_thresh": thresh,
+            "frames": MAIN_FRAMES, "resolution": [MAIN_H, MAIN_W], "wall_s": wall,
+            "fps": MAIN_FRAMES / wall,
+            "peak_mem_gib": max(top[0], torch.cuda.max_memory_allocated()) / 2 ** 30,
+            "stage_peak_mem_gib": peaks, "stages_host_s": profiling.snapshot(reset=True),
+            "knn": _knn_record(seen["knn"], MAIN_FRAMES),
+            "depth": _depths_record(depths, MAIN_FRAMES, f"forced {branch}")}
+
+
+def _knn_reference(queries, points, k):
+    """Exact k nearest neighbours on the host, independent of
+    ``ops/knn.py``: a k-d tree's k + 16 nearest (scipy), their squared
+    distances in f64 (exact on integer pixels), ordered by (distance,
+    index); a query whose last candidate ties its k-th neighbour (a tie
+    the tree may have cut) is searched by brute force.  Returns (squared
+    distances (Q, k) f64, indices (Q, k) int64)."""
+    from scipy.spatial import cKDTree
+
+    queries, points = np.asarray(queries, np.float64), np.asarray(points, np.float64)
+    m = min(k + 16, len(points))
+    _, cand = cKDTree(points).query(queries, m, workers=-1)
+    cand = np.asarray(cand, np.int64).reshape(len(queries), m)
+    d2 = ((queries[:, None, :] - points[cand]) ** 2).sum(-1)
+    order = np.lexsort((cand, d2), axis=-1)
+    d2, cand = np.take_along_axis(d2, order, 1), np.take_along_axis(cand, order, 1)
+    idx = np.arange(len(points))
+    for q in np.nonzero((m < len(points)) & (d2[:, -1] == d2[:, k - 1]))[0]:
+        d2q = ((queries[q] - points) ** 2).sum(-1)
+        order = np.lexsort((idx, d2q))[:k]
+        d2[q, :k], cand[q, :k] = d2q[order], order
+    return d2[:, :k], cand[:, :k]
+
+
+def _conditioning(pred, vy, vx, d2, idx):
+    """Per pixel, the condition number of the KNN completion's weighted
+    2×2 system (f64), as ``tests/test_torch_depth_align.py`` computes it."""
+    K = idx.shape[1]
+    pr = np.asarray(pred, np.float64)[vy, vx][idx] + 1e-5 * np.arange(1, K + 1)
+    w = 1.0 / np.sqrt(np.maximum(d2, 1e-8))
+    w /= w.sum(1, keepdims=True)
+    a01 = (w * pr).sum(1)
+    A = np.stack([np.stack([(w * pr * pr).sum(1), a01], -1), np.stack([a01, w.sum(1)], -1)], -2)
+    return np.linalg.cond(A).reshape(pred.shape)
+
+
+def priorda_card_vs_cpu_phase(chunk):
+    """PriorDA's completion on the card against the CPU, on the first
+    ``PRIORDA_CHECK_FRAMES`` frames that the depth main path's PriorDA
+    completed, with their prompts projected from its SLAM map: every
+    pixel of the 720p frame queried against the prompt's pixels.
+
+    * The KNN on the card against ``_knn_reference``: indices and squared
+      distances equal.
+    * ``complete_batch`` on the card against the same model on the CPU,
+      whose KNN is that reference.  With the seeded DAv2-B on the main
+      path's prompts: the globally fitted disparity within
+      ``DEPTH_NET_RTOL``, and the depth within ``DEPTH_NET_RTOL`` of the
+      largest on the pixels off the prompt whose 2×2 system has a
+      condition number below ``COND_MAX`` (the seeded net's nearly flat
+      disparity leaves few of them).  With the stub coarse net of
+      ``tests/test_torch_depth_align.py`` (1 + 0.2·the channel mean of the
+      normalised image) on prompts at the same pixels whose depths its
+      disparity explains (an affine map of it, 2 % noise, as the test
+      makes them): within ``PRIORDA_STUB_RTOL`` on those pixels, which
+      must be a tenth or more of each frame's pixels off the prompt.
+      Prompt pixels equal and every depth finite in both; the share of
+      well-conditioned pixels and the worst pixel beyond ``COND_MAX`` are
+      reported."""
+    import copy
+
+    import torch
+
+    from vipe_tpu_torch.ops.resize import resize_align_corners
+    from vipe_tpu_torch.priors.depth import priorda
+    from vipe_tpu_torch.priors.depth.dav2 import preprocess
+
+    model, rgbs, prompts = chunk
+    h, w = rgbs[0].shape[:2]
+    qy, qx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    queries = np.stack([qx.ravel(), qy.ravel()], -1)
+    t0 = time.perf_counter()
+    refs = []
+    for p in prompts:
+        vy, vx = np.nonzero(p > 0)
+        refs.append((vy, vx, *_knn_reference(queries, np.stack([vx, vy], -1), model.K)))
+    out = {"frames": len(prompts), "queries": int(len(queries)),
+           "prompt_points": [int(len(r[0])) for r in refs],
+           "knn_reference_s": time.perf_counter() - t0}
+
+    orig_knn, orig_kss = priorda.knn, priorda.knn_scale_shift_completion
+
+    def run(m, prompt_depths):
+        seen = {"knn": [], "pred": []}
+
+        def knn(query, points, k=1):
+            if query.is_cuda:
+                d2, idx = orig_knn(query, points, k)
+                seen["knn"].append((d2.cpu().numpy(), idx.cpu().numpy()))
+                return d2, idx
+            vy, vx, d2, idx = refs[len(seen["knn"])]
+            if not np.array_equal(points.numpy(), np.stack([vx, vy], -1)):
+                raise AssertionError("the CPU run's prompt points are not the reference's")
+            seen["knn"].append((d2, idx))
+            return torch.from_numpy(d2.astype(np.float32)), torch.from_numpy(idx)
+
+        def kss(pred, sparse, mask, K=5):
+            seen["pred"].append(pred.cpu().numpy())
+            return orig_kss(pred, sparse, mask, K)
+
+        priorda.knn, priorda.knn_scale_shift_completion = knn, kss
+        try:
+            depths = m.complete_batch(rgbs, prompt_depths)
+        finally:
+            priorda.knn, priorda.knn_scale_shift_completion = orig_knn, orig_kss
+        return [np.asarray(d) for d in depths], seen
+
+    cpu = copy.copy(model)
+    cpu.device = torch.device("cpu")
+    cpu.net = copy.deepcopy(model.net).cpu()
+    if model.fine_net is not None:
+        cpu.fine_net = copy.deepcopy(model.fine_net).cpu()
+    card_stub, cpu_stub = copy.copy(model), copy.copy(cpu)
+    card_stub.net = cpu_stub.net = lambda x: 1.0 + 0.2 * torch.mean(x, 1)
+    disp = resize_align_corners(cpu_stub.net(preprocess(np.stack(rgbs), model.input_size, "cpu"))
+                                [:, None], (h, w))[:, 0].numpy()
+    rng = np.random.default_rng(0)
+    stub_prompts = [np.where(p > 0, (1.0 / (0.8 * d + 0.1)) * (1 + 0.02 * rng.standard_normal(
+        d.shape)), 0.0).astype(np.float32) for p, d in zip(prompts, disp)]
+    for name, card_m, cpu_m, prompt_depths, tol in (
+            ("seeded_dav2_vitb", model, cpu, prompts, DEPTH_NET_RTOL),
+            ("stub_net", card_stub, cpu_stub, stub_prompts, PRIORDA_STUB_RTOL)):
+        t0 = time.perf_counter()
+        got, card_seen = run(card_m, prompt_depths)
+        ref, cpu_seen = run(cpu_m, prompt_depths)
+        rec = {"tol": tol, "cond_max": COND_MAX, "seconds": time.perf_counter() - t0,
+               "frames": []}
+        for k, ((d2, idx), (_, _, rd2, ridx)) in enumerate(zip(card_seen["knn"], refs)):
+            if not (np.array_equal(idx, ridx) and np.array_equal(d2.astype(np.float64), rd2)):
+                bad = np.nonzero((idx != ridx).any(1) | (d2 != rd2).any(1))[0]
+                raise AssertionError(f"frame {k}: the card's KNN differs from the exact "
+                                     f"reference at {len(bad)} queries, first {bad[:5]}")
+        for k, ((vy, vx, rd2, ridx), g, r) in enumerate(zip(refs, got, ref)):
+            mask = prompt_depths[k] > 0
+            if not (np.isfinite(g).all() and np.isfinite(r).all()):
+                raise AssertionError(f"PriorDA {name}, frame {k}: a depth is not finite")
+            if not np.array_equal(g[mask], r[mask]):
+                raise AssertionError(f"PriorDA {name}, frame {k}: the prompt pixels differ")
+            # the pixels off the prompt, split by their solve's conditioning
+            cond = _conditioning(cpu_seen["pred"][k], vy, vx, rd2, ridx)[~mask]
+            good = cond < COND_MAX
+            err = (np.abs(g.astype(np.float64) - r) / np.abs(r).max())[~mask]
+            fr = {"well_conditioned_share": float(good.mean()),
+                  "max_rel_err_well_conditioned": float(err[good].max()) if good.any() else None,
+                  "max_rel_err_other": float(err[~good].max()) if (~good).any() else None,
+                  "fitted_disp_rel_err": _rel_err(torch.from_numpy(cpu_seen["pred"][k]),
+                                                  torch.from_numpy(card_seen["pred"][k]))}
+            if fr["fitted_disp_rel_err"] > DEPTH_NET_RTOL:
+                raise AssertionError(f"PriorDA {name}, frame {k}: the card's fitted disparity "
+                                     f"is {fr['fitted_disp_rel_err']} off the CPU's")
+            if name == "stub_net" and good.mean() < 0.1:
+                raise AssertionError(f"PriorDA {name}, frame {k}: only {good.mean():.3f} of the "
+                                     "pixels off the prompt well conditioned")
+            if good.any() and err[good].max() > tol:
+                raise AssertionError(f"PriorDA {name}, frame {k}: {err[good].max()} on the well-"
+                                     f"conditioned pixels (limit {tol})")
+            rec["frames"].append(fr)
+        out[name] = rec
+    out["knn_equal"] = True
+    return out
+
+
+def _net_timing(forward, peak_flops):
+    """One ``forward()``'s operations (``torch.utils.flop_counter``), its
+    warm time by CUDA events, the bound at ``peak_flops`` and the peak
+    memory."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        forward()
+    flops = fc.get_total_flops()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _cuda_ms(forward, 3)
+    return {"ms": ms, "flops": flops, "bound_ms": flops / peak_flops * 1e3,
+            "bound_by": "operations", "bound_share": flops / peak_flops * 1e3 / ms,
+            "tflops_per_s": flops / ms / 1e9,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def depth_nets_phase():
+    """The depth stage's nets at their published widths, seeded random
+    weights: VDA-S and VDA-L (ViT-S/L, features 64/256, four temporal
+    modules) and PriorDA's conditioned fine DAv2-B (``cond_dim`` 3).  Each
+    on the card against the same module on the CPU in IEEE f32 at a small
+    input (32 frames at 70×98 for VDA, 2 frames for DAv2); VDA's bf16
+    against its f32 on the card on one 32-frame window at 518×924; times
+    by CUDA events against the operations ``torch.utils.flop_counter``
+    counts: VDA per window in bf16 autocast (989 TFLOP/s), DAv2-B on a
+    chunk of 8 frames in f32 (67 TFLOP/s)."""
+    import torch
+
+    from vipe_tpu_torch.priors.depth.dav2 import build_dav2_net
+    from vipe_tpu_torch.priors.depth.videodepthanything import build_vda_net, precision
+    from vipe_tpu_torch.utils.device import true_f32
+
+    g = torch.Generator().manual_seed(5)
+    out = {"precision_check": "f32 convolutions and matmuls, TF32 off"}
+    small = torch.randn((32, 3) + DEPTH_SMALL, generator=g)
+    clip = torch.randint(0, 256, (32, 3, VDA_H, VDA_W), dtype=torch.uint8, generator=g).cuda()
+    for variant in ("vits", "vitl"):
+        net = build_vda_net(variant, None, 0, "cpu")
+        with torch.no_grad(), true_f32():
+            ref = net(small)
+            net = net.cuda()
+            err = _rel_err(ref, net(small.cuda()))
+            f32 = net(clip)
+        with torch.no_grad(), precision(torch.device("cuda"), torch.bfloat16):
+            err16 = _rel_err(f32, net(clip))
+            timing = _net_timing(lambda: net(clip), BF16_TENSOR_FLOPS_PER_S)
+        if not (err <= DEPTH_NET_RTOL and err16 <= DEPTH_BF16_RTOL):
+            raise AssertionError(f"VDA {variant}: card against CPU {err} (limit {DEPTH_NET_RTOL}), "
+                                 f"bf16 against f32 {err16} (limit {DEPTH_BF16_RTOL})")
+        out[f"vda_{variant}"] = {
+            "card_vs_cpu": {"size": [32, *DEPTH_SMALL], "rel_err": err, "tol": DEPTH_NET_RTOL},
+            "bf16_vs_f32": {"size": [32, VDA_H, VDA_W], "rel_err": err16, "tol": DEPTH_BF16_RTOL},
+            "window_bf16": {"frames": 32, "size": [VDA_H, VDA_W], **timing},
+            "params": sum(p.numel() for p in net.parameters())}
+        del net, f32, ref
+        torch.cuda.empty_cache()
+
+    net = build_dav2_net("vitb", None, 0, "cpu", cond_dim=3)
+    x = torch.randn((2, 3) + DEPTH_SMALL, generator=g)
+    cond = torch.randn((2, 3) + DEPTH_SMALL, generator=g)
+    big = [torch.randn((8, 3, VDA_H, VDA_W), generator=g).cuda() for _ in range(2)]
+    with torch.no_grad(), true_f32():
+        ref = net(x, cond)
+        net = net.cuda()
+        err = _rel_err(ref, net(x.cuda(), cond.cuda()))
+        timing = _net_timing(lambda: net(*big), F32_FLOPS_PER_S)
+    if not err <= DEPTH_NET_RTOL:
+        raise AssertionError(f"PriorDA fine DAv2-B on the card against the CPU: {err} "
+                             f"(limit {DEPTH_NET_RTOL})")
+    out["priorda_fine_dav2_vitb"] = {
+        "card_vs_cpu": {"size": [2, *DEPTH_SMALL], "rel_err": err, "tol": DEPTH_NET_RTOL},
+        "chunk_f32": {"frames": 8, "size": [VDA_H, VDA_W], **timing},
+        "params": sum(p.numel() for p in net.parameters())}
+    del net, big, clip
+    torch.cuda.empty_cache()
+    return out
+
+
 def determinism_check(main_paths):
     """Two runs of one main path in one call must agree: keyframes,
     removals and K1 launches equal, intrinsics and trajectory bit-equal."""
     out = {}
     for a, b in (("volume", "volume_again"), ("mei_masks_depth", "mei_masks_depth_again"),
-                 ("unidepth", "unidepth_again")):
+                 ("unidepth", "unidepth_again"), ("depth_align", "depth_align_again")):
         ra, rb = main_paths[a], main_paths[b]
         same = {k: ra[k] == rb[k] for k in ("keyframes", "n_removals", "late_removals",
                                              "intrinsics_hex", "trajectory_sha1")}
         same["K1_launches"] = ra["launches"]["corr_lookup"] == rb["launches"]["corr_lookup"]
+        if "depth_align" in ra:
+            same["depth_sha1"] = (ra["depth_align"]["depth"]["sha1"]
+                                  == rb["depth_align"]["depth"]["sha1"])
+            same["branch"] = ra["depth_align"]["branch"] == rb["depth_align"]["branch"]
         if not all(same.values()):
             raise AssertionError(f"runs {a} and {b} of one code differ: {same}")
         out[f"{a} / {b}"] = same
     return out
+
+
+def depth_phases(thresh, main_paths, captured):
+    """The depth stage's nets, then the depth main path twice (two runs of
+    one code, the same bits), then the branch it did not take, then
+    PriorDA's completion on the card against the CPU."""
+    print(json.dumps({"depth_nets": depth_nets_phase()}), flush=True)
+    for label in ("depth_align", "depth_align_again"):
+        keep = {}
+        main_paths[label], captured[label] = depth_main_path_phase(label, thresh, keep)
+        print(json.dumps({"main_path": main_paths[label]}), flush=True)
+    print(json.dumps({"depth_other_branch": depth_other_branch_phase(main_paths["depth_align"],
+                                                                     keep)}), flush=True)
+    print(json.dumps({"priorda_card_vs_cpu": priorda_card_vs_cpu_phase(keep["priorda_chunk"])}),
+          flush=True)
 
 
 def main():
@@ -1421,8 +1863,10 @@ def main():
     for label in ("unidepth", "unidepth_again"):
         main_paths[label], captured[label] = unidepth_main_path_phase(label, thresh)
         print(json.dumps({"main_path": main_paths[label]}), flush=True)
-    # the process keeps the factory's UniDepth-L (0.83 GiB on the card):
-    # drop it, so that the later paths' peaks are their own
+    depth_phases(thresh, main_paths, captured)
+    # the process keeps the factory's UniDepth-L (0.83 GiB on the card) and
+    # the depth stage's models: drop them, so that the later paths' peaks
+    # are their own
     from vipe_tpu_torch.models import model_cache
 
     model_cache.clear()
@@ -1436,6 +1880,7 @@ def main():
     k1["launches"] = main_paths["volume"]["launches"]["corr_lookup"]
     k1["geocalib_launches"] = main_paths["geocalib"]["launches"]["corr_lookup"]
     k1["unidepth_launches"] = main_paths["unidepth"]["launches"]["corr_lookup"]
+    k1["depth_align_launches"] = main_paths["depth_align"]["launches"]["corr_lookup"]
     k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
     k1["rig_launches"] = main_paths["rig_volume"]["launches"]["corr_lookup"]
     k2["rig_launches"] = main_paths["rig_alt"]["launches"]["corr_fused"]

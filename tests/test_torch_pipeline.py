@@ -2,9 +2,11 @@
 
 * ``python -m vipe_tpu_torch.cli.main infer <tiny mp4> --device cpu`` with
   SLAM-size overrides (a 64×48 SLAM frame, 4 warm-up keyframes, 2 backend
-  iterations) writes the artifact tree that ``vipe_tpu.utils.io`` writes
-  for the same results,
-  and ``vipe_tpu``'s readers and ``evaluate`` command read it back.
+  iterations) and the post-SLAM depth of ``static_vda.yaml``
+  (``adaptive_constant-2.0_svda``; the process's model cache holds VDA-S
+  and PriorDA at ``input_size`` 70, seeded) writes the artifact tree that
+  ``vipe_tpu.utils.io`` writes for the same results, depth included, and
+  ``vipe_tpu``'s readers and ``evaluate`` command read it back.
 * The same subprocess then lists the modules it imported: no ``jax``,
   ``flax`` or ``vipe_tpu``.
 * ``VideoFrame.resize`` (torch bilinear, half-pixel centres) against
@@ -25,12 +27,21 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W, FRAMES = 48, 64, 24
 OVERRIDES = ["pipeline.slam.resize_area=3072", "pipeline.slam.warmup=4",
-             "pipeline.slam.backend_iters=2", "pipeline.slam.infill_chunk_size=8"]
+             "pipeline.slam.backend_iters=2", "pipeline.slam.infill_chunk_size=8",
+             "pipeline.post.depth_align_model=adaptive_constant-2.0_svda"]
 
-# runs the CLI in-process, then reports which heavy packages got imported
+# runs the CLI in-process with small depth models in the model cache, then
+# reports which heavy packages got imported
 _CLI_AND_MODULES = """
 import json, sys
 from vipe_tpu_torch.cli.main import main
+from vipe_tpu_torch.models.model_cache import cached_global
+from vipe_tpu_torch.priors.depth.priorda import PriorDAModel
+from vipe_tpu_torch.priors.depth.videodepthanything import VideoDepthAnythingModel
+cached_global(("vda", VideoDepthAnythingModel, "vits", "cpu"),
+              lambda: VideoDepthAnythingModel("vits", input_size=70, device="cpu"))
+cached_global(("priorda", PriorDAModel, True, "cpu"),
+              lambda: PriorDAModel("vits", input_size=70, coarse_only=True, device="cpu"))
 sys.argv = ["vipe"] + sys.argv[1:]
 try:
     main()
@@ -74,7 +85,8 @@ def port_run(clip, tmp_path_factory):
         [sys.executable, "-c", _CLI_AND_MODULES, "infer", str(clip), "--output", str(out),
          "--device", "cpu", *OVERRIDES],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
-        env={**os.environ, "OMP_NUM_THREADS": "1"},
+        env={**os.environ, "OMP_NUM_THREADS": "1",
+             "VIPE_WEIGHTS_DIR": str(tmp_path_factory.mktemp("no_weights"))},
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = [s for s in proc.stdout.splitlines() if s.startswith("MODULES ")][-1]
@@ -99,13 +111,21 @@ def test_artifact_tree_matches_vipe_tpu_writers(port_run, tmp_path):
     assert camera_type == "pinhole"
     assert np.isfinite(info["ba_residual"])
 
+    depths = list(jio.read_depth_artifacts(art))
+    assert len(depths) == FRAMES
+    for d in depths:
+        assert d.shape == (H, W) and np.isfinite(d).all() and (d > 0).all()
+
     # the JAX package's writers, given the same results, write the same tree
     ref = jio.ArtifactPath(tmp_path, "verify_clip")
     jio.save_poses(ref, mats, inds)
     jio.save_intrinsics(ref, intr[0], camera_type, n_frames=FRAMES)
     jio.save_info(ref, info)
     jio.save_rgb_video(ref, [np.zeros((H, W, 3), np.uint8)] * FRAMES)
+    jio.save_depth_zip(ref, iter(depths))
     assert _tree(out) == _tree(tmp_path)
+    for a, b in zip(depths, jio.read_depth_artifacts(ref)):
+        np.testing.assert_array_equal(a, b)
     for rel in ("pose/verify_clip.npz", "intrinsics/verify_clip.npz",
                 "intrinsics/verify_clip_camera.txt", "vipe/verify_clip_info.pkl"):
         assert (out / rel).read_bytes() == (tmp_path / rel).read_bytes(), rel
@@ -129,12 +149,16 @@ def test_vipe_tpu_evaluate_reads_port_artifacts(port_run, tmp_path):
     from vipe_tpu.utils import io as jio
 
     out, _ = port_run
-    mats, inds = jio.read_pose_artifacts(jio.ArtifactPath(out, "verify_clip"))
-    jio.save_poses(jio.ArtifactPath(tmp_path, "verify_clip"), mats, inds)
+    art = jio.ArtifactPath(out, "verify_clip")
+    mats, inds = jio.read_pose_artifacts(art)
+    gt = jio.ArtifactPath(tmp_path, "verify_clip")
+    jio.save_poses(gt, mats, inds)
+    jio.save_depth_zip(gt, jio.read_depth_artifacts(art))
     res = CliRunner().invoke(vipe, ["evaluate", str(out), str(tmp_path)])
     assert res.exit_code == 0, res.output
     metrics = json.loads(res.output[res.output.index("{"):])
     assert metrics["verify_clip"]["ate_rmse"] < 1e-5
+    assert metrics["verify_clip"]["depth_abs_rel"] < 1e-3
 
 
 def test_port_imports_no_jax(port_run):
@@ -143,12 +167,14 @@ def test_port_imports_no_jax(port_run):
 
 
 def test_unported_pipeline_options_raise():
+    """TrackAnything instances are refused; the post-SLAM depth is not."""
     from vipe_tpu_torch.pipeline.default import DefaultAnnotationPipeline
 
-    for kw in (dict(init={"instance": "track_anything"}),
-               dict(post={"depth_align_model": "adaptive_unidepth-l_vda"})):
-        with pytest.raises(NotImplementedError):
-            DefaultAnnotationPipeline(device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        DefaultAnnotationPipeline(device="cpu", init={"instance": "track_anything"})
+    DefaultAnnotationPipeline(device="cpu", post={"depth_align_model": "adaptive_unidepth-l_vda",
+                                                  "overlap_vda": True},
+                              init={"overlap": True})
 
 
 def test_default_device_needs_cuda():
@@ -175,6 +201,20 @@ def test_port_config_matches_jax_default():
     assert port["slam"]["keyframe_spec_depth"] == 2 and port["slam"]["proximity_spec"] is True
     assert port["slam"] == jax_cfg["slam"]
     port.pop("instance"), jax_cfg.pop("instance")
+    assert port == jax_cfg
+
+
+@pytest.mark.parametrize("name", ["static_vda", "no_vda"])
+def test_port_config_variants_match_jax(name):
+    """configs/pipeline/{static_vda,no_vda}.yaml key for key; only the
+    pipeline class differs."""
+    from vipe_tpu.utils.config import compose as jcompose
+    from vipe_tpu_torch.utils.config import compose, get_config_path
+
+    port = compose(get_config_path(), "default", [f"pipeline={name}"])["pipeline"]
+    jax_cfg = jcompose(ROOT / "configs", "default", [f"pipeline={name}"])["pipeline"]
+    assert port.pop("instance") == "vipe_tpu_torch.pipeline.default.DefaultAnnotationPipeline"
+    assert jax_cfg.pop("instance") == "vipe_tpu.pipeline.default.DefaultAnnotationPipeline"
     assert port == jax_cfg
 
 

@@ -1,12 +1,14 @@
-"""Flax → PyTorch weight conversion for DroidNet, GeoCalib and UniDepth.
+"""Flax → PyTorch weight conversion for DroidNet, GeoCalib, UniDepth, Depth
+Anything v2 and Video Depth Anything.
 
-``droidnet_state_dict_from_flax``, ``geocalib_state_dict_from_flax`` and
-``unidepth_state_dict_from_flax`` are the inverses of
-``vipe_tpu.models.convert.convert_droidnet``, ``convert_geocalib`` and
-``convert_unidepth``: they turn the JAX package's param trees (given as
-numpy arrays) into this port's state dicts, in ViPE's key layout, so both
-packages can run the same weights.  Conv kernels go from flax
-``(kh, kw, I, O)`` to torch ``(O, I, kh, kw)``.
+``droidnet_state_dict_from_flax``, ``geocalib_state_dict_from_flax``,
+``unidepth_state_dict_from_flax``, ``dav2_state_dict_from_flax`` and
+``vda_state_dict_from_flax`` are the inverses of
+``vipe_tpu.models.convert.convert_droidnet``, ``convert_geocalib``,
+``convert_unidepth``, ``convert_dav2`` and ``convert_vda``: they turn the
+JAX package's param trees (given as numpy arrays) into this port's state
+dicts, in ViPE's key layout, so both packages can run the same weights.
+Conv kernels go from flax ``(kh, kw, I, O)`` to torch ``(O, I, kh, kw)``.
 """
 
 from __future__ import annotations
@@ -244,4 +246,66 @@ def unidepth_state_dict_from_flax(params) -> dict:
         _put(sd, f"{dl}.to_{head}_lr", dp[f"to_{head}_lr"])
         _put(sd, f"{dl}.to_{head}_hr.0", dp[f"to_{head}_hr0"])
         _put(sd, f"{dl}.to_{head}_hr.2", dp[f"to_{head}_hr2"])
+    return sd
+
+
+def _dpt_head_from_flax(sd: dict, prefix: str, p: dict):
+    for i in range(4):
+        _put(sd, f"{prefix}.projects.{i}", p[f"project{i}"])
+        _put(sd, f"{prefix}.scratch.layer{i + 1}_rn", p[f"layer{i + 1}_rn"])
+    _put_conv_transpose(sd, f"{prefix}.resize_layers.0", p["resize0"])
+    _put_conv_transpose(sd, f"{prefix}.resize_layers.1", p["resize1"])
+    _put(sd, f"{prefix}.resize_layers.3", p["resize3"])
+    for r in range(1, 5):
+        rn, key = p[f"refinenet{r}"], f"{prefix}.scratch.refinenet{r}"
+        for unit in (1, 2):
+            if f"rcu{unit}" in rn:
+                _put(sd, f"{key}.resConfUnit{unit}.conv1", rn[f"rcu{unit}"]["conv1"])
+                _put(sd, f"{key}.resConfUnit{unit}.conv2", rn[f"rcu{unit}"]["conv2"])
+        _put(sd, f"{key}.out_conv", rn["out_conv"])
+    _put(sd, f"{prefix}.scratch.output_conv1", p["output_conv1"])
+    _put(sd, f"{prefix}.scratch.output_conv2.0", p["output_conv2_0"])
+    _put(sd, f"{prefix}.scratch.output_conv2.2", p["output_conv2_2"])
+
+
+def dav2_state_dict_from_flax(params) -> dict:
+    """``{"vit", "head"}`` of ``vipe_tpu``'s ``DepthAnythingV2Net`` (numpy
+    leaves; a conditioned ViT's ``alpha_proj`` too) → the port's
+    ``DepthAnythingV2Net`` state dict (inverse of ``convert_dav2``)."""
+    sd = vit_state_dict_from_flax(params["vit"], "pretrained")
+    _dpt_head_from_flax(sd, "depth_head", params["head"]["params"])
+    return sd
+
+
+def _motion_from_flax(sd: dict, key: str, p: dict):
+    t = f"{key}.temporal_transformer"
+    _put_norm(sd, f"{t}.norm", p["norm"])
+    _put_linear(sd, f"{t}.proj_in", p["proj_in"])
+    _put_linear(sd, f"{t}.proj_out", p["proj_out"])
+    li = 0
+    while f"block{li}" in p:
+        pb, b = p[f"block{li}"], f"{t}.transformer_blocks.{li}"
+        ai = 0
+        while f"attn{ai}" in pb:
+            a = f"{b}.attention_blocks.{ai}"
+            for name in ("to_q", "to_k", "to_v"):
+                _put_linear(sd, f"{a}.{name}", pb[f"attn{ai}"][name])
+            _put_linear(sd, f"{a}.to_out.0", pb[f"attn{ai}"]["to_out"])
+            _put_norm(sd, f"{b}.norms.{ai}", pb[f"norm{ai}"])
+            ai += 1
+        _put_norm(sd, f"{b}.ff_norm", pb["ff_norm"])
+        _put_linear(sd, f"{b}.ff.net.0.proj", pb["ff_geglu"]["proj"])
+        _put_linear(sd, f"{b}.ff.net.2", pb["ff_out"])
+        li += 1
+
+
+def vda_state_dict_from_flax(params) -> dict:
+    """``{"vit", "head"}`` of ``vipe_tpu``'s ``VideoDepthAnythingNet`` (numpy
+    leaves) → the port's ``VideoDepthAnythingNet`` state dict (inverse of
+    ``convert_vda``)."""
+    sd = vit_state_dict_from_flax(params["vit"], "pretrained")
+    p = params["head"]["params"]
+    _dpt_head_from_flax(sd, "head", p)
+    for m in range(4):
+        _motion_from_flax(sd, f"head.motion_modules.{m}", p[f"motion{m}"])
     return sd

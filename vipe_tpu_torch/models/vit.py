@@ -163,3 +163,36 @@ class DinoViT(nn.Module):
 
 def make_vit(variant: str, **kwargs) -> DinoViT:
     return DinoViT(**{**VIT_CONFIGS[variant], **kwargs})
+
+
+def init_seeded_(net: nn.Module, seed: int = 0, gamma: float = 1.0) -> torch.Generator:
+    """Seeded random init from one ``torch.Generator``, as flax initialises
+    the JAX package's nets: dense and conv weights normal with variance
+    1/fan_in (every one, zero-initialised projections too), biases 0,
+    norms at identity, layer scales at ``gamma``; each ViT's positional
+    embedding and register tokens normal(0.02), its cls token 0.  Returns
+    the generator, for a caller's further draws."""
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(t, std):
+        t.copy_(torch.randn(t.shape, generator=g) * std)
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                fan_in = m.weight[0].numel() if not isinstance(m, nn.ConvTranspose2d) \
+                    else m.weight.shape[0] * m.weight[0, 0].numel()
+                normal(m.weight, fan_in ** -0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
+                m.reset_parameters()
+        for vit in (m for m in net.modules() if isinstance(m, DinoViT)):
+            normal(vit.pos_embed, 0.02)
+            vit.cls_token.zero_()
+            if vit.register_tokens is not None:
+                normal(vit.register_tokens, 0.02)
+        for name, p in net.named_parameters():
+            if name.endswith("gamma"):
+                p.fill_(gamma)
+    return g

@@ -1,5 +1,7 @@
 """Local weight registry (port of ``vipe_tpu/models/zoo.py``, as far as the
-port's modules go): ``geocalib_pinhole|distorted`` and ``unidepth_s|b|l``.
+port's modules go): ``geocalib_pinhole|distorted``, ``unidepth_s|b|l``,
+``dav2_vits|vitb|vitl``, ``vda_vits|vitl``, ``priorda`` (PriorDA's coarse
+DAv2) and ``priorda_fine`` (its conditioned DAv2).
 
 Weights are read from ``$VIPE_WEIGHTS_DIR`` (default
 ``~/.cache/vipe_weights``), nothing is downloaded.  Per family the first of
@@ -11,7 +13,8 @@ these files found is used:
   loaded as is (``weights_only=True``).
 
 No file → ``load_state_dict`` returns None and the model is random-initialised
-from a seed.  A family that the port has no module for raises
+from a seed (``load_net``); ``has_weights`` says whether a family has a
+file.  A family that the port has no module for raises
 ``NotImplementedError``.
 """
 
@@ -25,7 +28,9 @@ import numpy as np
 import torch
 
 _EXTS = (".npz", ".pth", ".pt", ".ckpt", ".bin")
-FAMILIES = ("geocalib_pinhole", "geocalib_distorted", "unidepth_s", "unidepth_b", "unidepth_l")
+FAMILIES = ("geocalib_pinhole", "geocalib_distorted", "unidepth_s", "unidepth_b", "unidepth_l",
+            "dav2_vits", "dav2_vitb", "dav2_vitl", "vda_vits", "vda_vitl", "priorda",
+            "priorda_fine")
 
 
 def weights_dir() -> pathlib.Path:
@@ -40,6 +45,11 @@ def _find(family: str) -> Optional[pathlib.Path]:
         if p.is_file():
             return p
     return None
+
+
+def has_weights(family: str) -> bool:
+    """Whether the weights directory holds a file for ``family``."""
+    return _find(family) is not None
 
 
 def _unflatten(flat) -> dict:
@@ -64,8 +74,11 @@ def load_state_dict(family: str) -> Optional[dict]:
     if path.suffix == ".npz":
         from . import convert
 
-        from_flax = (convert.unidepth_state_dict_from_flax if family.startswith("unidepth")
-                     else convert.geocalib_state_dict_from_flax)
+        from_flax = {"unidepth": convert.unidepth_state_dict_from_flax,
+                     "geocalib": convert.geocalib_state_dict_from_flax,
+                     "dav2": convert.dav2_state_dict_from_flax,
+                     "priorda": convert.dav2_state_dict_from_flax,
+                     "vda": convert.vda_state_dict_from_flax}[family.split("_")[0]]
         with np.load(path) as z:
             return from_flax(_unflatten({k: z[k] for k in z.files}))
     obj = torch.load(path, map_location="cpu", weights_only=True)
@@ -73,3 +86,20 @@ def load_state_dict(family: str) -> Optional[dict]:
         if isinstance(obj, dict) and isinstance(obj.get(key), dict):
             obj = obj[key]
     return {k.removeprefix("module."): v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def load_net(net: torch.nn.Module, state_dict=None, seed: int = 0,
+             init=None) -> torch.nn.Module:
+    """A net built on the meta device, on the CPU with ``state_dict`` (keys
+    the net does not hold, such as DINOv2's mask token, dropped; every key
+    it holds required) or, when None, random weights from ``init(net,
+    seed)`` (default ``models.vit.init_seeded_``); frozen."""
+    from .vit import init_seeded_
+
+    net = net.to_empty(device="cpu")
+    if state_dict is None:
+        (init or init_seeded_)(net, seed)
+    else:
+        own = net.state_dict()
+        net.load_state_dict({k: v for k, v in state_dict.items() if k in own}, strict=True)
+    return net.eval().requires_grad_(False)

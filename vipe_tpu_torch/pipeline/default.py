@@ -8,9 +8,17 @@ trajectory ``c2w · rig[v]`` and its intrinsics.
 (calibrated from sampled frames of the raw stream, for ``init.camera_type``;
 each view of a rig on its own stream); the keyframe depth prior of
 ``slam.keyframe_depth`` (``constant-<depth>`` or ``unidepth-<s|b|l>``) is
-built by the depth factory on the pipeline's device.  The other learned
-priors (depth alignment, TrackAnything instances) are not ported yet;
-asking for one raises ``NotImplementedError``.
+built by the depth factory on the pipeline's device.
+
+``post.depth_align_model`` (``adaptive_<metric>[_<svda|vda>]``) adds the
+post-SLAM depth stage: ``AdaptiveDepthProcessor`` runs on each view's
+stream after SLAM and its metric depth goes to ``depth/<name>.zip`` (one
+f16 EXR per frame), or to ``output.depths`` when no output path is
+given.  The JAX package may run VDA-S beside SLAM (``post.overlap_vda``,
+``init.overlap``); its result is the same, since VDA reads only the
+frames, and the port runs it after SLAM whatever those keys say.
+TrackAnything instances (``init.instance``) are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from ..utils import io as io_utils
 from ..utils import profiling
 from ..utils.device import resolve_device
 from . import AnnotationPipelineOutput, Pipeline
-from .processors import GeoCalibIntrinsicsProcessor, HeuristicIntrinsicsProcessor
+from .processors import AdaptiveDepthProcessor, GeoCalibIntrinsicsProcessor, \
+    HeuristicIntrinsicsProcessor
 
 
 class DefaultAnnotationPipeline(Pipeline):
@@ -45,9 +54,8 @@ class DefaultAnnotationPipeline(Pipeline):
         intr_mode = self.init_cfg.get("intrinsics", "fov")
         if intr_mode not in ("fov", "gt", "geocalib", None):
             raise NotImplementedError(f"init.intrinsics={intr_mode!r} is not ported yet")
-        for section, key in (("init", "instance"), ("post", "depth_align_model")):
-            if getattr(self, f"{section}_cfg").get(key):
-                raise NotImplementedError(f"{section}.{key} is not ported yet")
+        if self.init_cfg.get("instance"):
+            raise NotImplementedError("init.instance is not ported yet")
         if self.output_cfg.get("save_viz", False):
             raise NotImplementedError("output.save_viz is not ported yet")
 
@@ -124,23 +132,30 @@ class DefaultAnnotationPipeline(Pipeline):
         return outputs[0]
 
     def _post(self, stream, slam_out, camera_type, fps):
-        """One streaming pass that stamps poses/intrinsics on the frames and
-        writes the artifacts (or keeps the rgb frames when no path)."""
-        out_stream = ProcessedVideoStream(stream, [
-            AssignAttributesProcessor(poses=slam_out.trajectory,
-                                      intrinsics=slam_out.intrinsics)
-        ])
+        """One streaming pass that stamps poses/intrinsics (and the post
+        depth) on the frames and writes the artifacts (or keeps the rgb
+        frames and depths when no path)."""
+        procs = [AssignAttributesProcessor(poses=slam_out.trajectory,
+                                           intrinsics=slam_out.intrinsics)]
+        depth_model = self.post_cfg.get("depth_align_model")
+        if depth_model:
+            procs.append(AdaptiveDepthProcessor(depth_model, slam_output=slam_out,
+                                                device=self.device))
+        out_stream = ProcessedVideoStream(stream, procs)
         root = self.output_cfg.get("path")
         art = io_utils.ArtifactPath(pathlib.Path(root), stream.name()) if root is not None else None
         writer = io_utils.StreamingArtifactWriter(art, fps=fps) if art is not None else None
         rgbs = [] if art is None else None
+        depths = [] if art is None and depth_model else None
         n_frames = 0
         for f in out_stream:
             if writer is not None:
                 with profiling.stage("artifact_write"):
-                    writer.add_frame(rgb=f.rgb)
+                    writer.add_frame(rgb=f.rgb, depth=f.metric_depth)
             else:
                 rgbs.append(f.rgb)
+                if depths is not None:
+                    depths.append(f.metric_depth)
             n_frames += 1
 
         output = AnnotationPipelineOutput(
@@ -150,6 +165,8 @@ class DefaultAnnotationPipeline(Pipeline):
         )
         if rgbs is not None:
             output.rgb_frames = iter(rgbs)
+        if depths is not None:
+            output.depths = iter(depths)
         if writer is not None:
             writer.close()
             io_utils.save_poses(art, output.trajectory, output.frame_inds)

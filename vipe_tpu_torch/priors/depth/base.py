@@ -50,6 +50,12 @@ class DepthEstimationModel:
     def estimate_depth(self, rgb, focal_length=None):
         return self.estimate(DepthEstimationInput(rgb=rgb, focal_length=focal_length)).depth
 
+    def estimate_depth_batch(self, rgbs, focal_length=None):
+        """Depth for several same-shaped frames with one shared focal; this
+        default runs them one by one, a model with a batched forward
+        overrides it."""
+        return [self.estimate_depth(r, focal_length) for r in rgbs]
+
 
 class ConstantDepthModel(DepthEstimationModel):
     """Constant metric depth everywhere: a prior with no weights, for tests

@@ -1,9 +1,11 @@
 """Depth-model factory (port of ``vipe_tpu/priors/depth/factory.py``).
 
-Names follow ``"<family>-<variant>"``.  Ported: ``constant-<depth>`` and
-``unidepth-<s|b|l>``; the other learned families raise
-``NotImplementedError`` until the slice that ports them.  A learned model
-is built once per process and device (``models/model_cache.py``): a fresh
+Names follow ``"<family>-<variant>"``: ``constant-<depth>``,
+``unidepth-<s|b|l>``, ``dav2-<vits|vitb|vitl>``,
+``vda-<vits|vitl>`` (or ``videodepthanything-…``) and
+``priorda[-<vits|vitb|vitl>]``; ``metric3d`` raises
+``NotImplementedError`` until the slice that ports it.  A learned model is
+built once per process and device (``models/model_cache.py``): a fresh
 pipeline per video does not load a ViT-L again.
 """
 
@@ -11,7 +13,25 @@ from __future__ import annotations
 
 from .base import ConstantDepthModel, DepthEstimationModel
 
-_LATER = ("metric3d", "priorda", "dav2", "vda", "videodepthanything")
+
+def _learned(family: str):
+    if family == "unidepth":
+        from .unidepth import UniDepthModel
+
+        return UniDepthModel, "l"
+    if family == "dav2":
+        from .dav2 import DepthAnythingV2Model
+
+        return DepthAnythingV2Model, "vitl"
+    if family in ("vda", "videodepthanything"):
+        from .videodepthanything import VideoDepthAnythingModel
+
+        return VideoDepthAnythingModel, "vitl"
+    if family == "priorda":
+        from .priorda import PriorDAModel
+
+        return PriorDAModel, "vitb"
+    return None, None
 
 
 def make_depth_model(name: str, device=None) -> DepthEstimationModel:
@@ -19,16 +39,16 @@ def make_depth_model(name: str, device=None) -> DepthEstimationModel:
     family, _, variant = name.partition("-")
     if family == "constant":
         return ConstantDepthModel(float(variant) if variant else 2.0)
-    if family == "unidepth":
+    cls, default = _learned(family)
+    if cls is not None:
         from ...models.model_cache import cached_global
         from ...utils.device import resolve_device
-        from .unidepth import UniDepthModel
 
         dev = resolve_device(device)
-        return cached_global(("depth_model", UniDepthModel, name, str(dev)),
-                             lambda: UniDepthModel(variant or "l", device=dev))
-    if family in _LATER:
+        return cached_global(("depth_model", cls, name, str(dev)),
+                             lambda: cls(variant or default, device=dev))
+    if family == "metric3d":
         raise NotImplementedError(
-            f"depth model {name!r}: the {family} prior is not ported yet "
+            f"depth model {name!r}: the metric3d prior is not ported yet "
             "(ROADMAP.md, queue 1: the priors slice)")
     raise ValueError(f"Unknown depth model family: {family!r} (from {name!r})")

@@ -38,7 +38,7 @@ from torch import nn
 from ...models import zoo
 from ...models.unidepth_layers import LN_EPS, MLP, AttentionBlock, AttentionLayer, ResUpsampleBil, \
     fourier_features
-from ...models.vit import VIT_CONFIGS, make_vit
+from ...models.vit import VIT_CONFIGS, init_seeded_, make_vit
 from ...ops.resize import resize_align_corners, resize_bilinear
 from ...utils.device import resolve_device, true_f32
 from .base import (IMAGENET_MEAN, IMAGENET_STD, DepthEstimationInput, DepthEstimationModel,
@@ -279,35 +279,12 @@ class UniDepthNet(nn.Module):
 
 
 def init_unidepth_(net: UniDepthNet, seed: int = 0) -> UniDepthNet:
-    """Seeded random init from one ``torch.Generator``, as flax initialises
-    the JAX package's net: dense and conv weights normal with variance
-    1/fan_in, biases 0, norms at identity, layer scales at
-    ``cfg.layer_scale``, positional embeddings normal(0.02), the camera
-    latents normal(1), the cls token 0."""
-    g = torch.Generator().manual_seed(seed)
-
-    def normal(t, std):
-        t.copy_(torch.randn(t.shape, generator=g) * std)
-
+    """Seeded random init (``models.vit.init_seeded_``, layer scales at
+    ``cfg.layer_scale``), then the camera latents normal(1)."""
+    g = init_seeded_(net, seed, gamma=net.cfg.layer_scale)
     with torch.no_grad():
-        for m in net.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-                fan_in = m.weight[0].numel() if not isinstance(m, nn.ConvTranspose2d) \
-                    else m.weight.shape[0] * m.weight[0, 0].numel()
-                normal(m.weight, fan_in ** -0.5)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, nn.LayerNorm):
-                m.reset_parameters()
-        vit = net.pixel_encoder
-        normal(vit.pos_embed, 0.02)
-        vit.cls_token.zero_()
-        if vit.register_tokens is not None:
-            normal(vit.register_tokens, 0.02)
-        normal(net.pixel_decoder.camera_layer.latents_pos, 1.0)
-        for name, p in net.named_parameters():
-            if name.endswith("gamma"):
-                p.fill_(net.cfg.layer_scale)
+        lp = net.pixel_decoder.camera_layer.latents_pos
+        lp.copy_(torch.randn(lp.shape, generator=g))
     return net
 
 
@@ -337,17 +314,9 @@ class UniDepthModel(DepthEstimationModel):
         self.device = resolve_device(device)
         with torch.device("meta"):  # no default init: every tensor is set below
             net = UniDepthNet(vit_variant, cfg)
-        net = net.to_empty(device="cpu")
         if state_dict is None:
             state_dict = zoo.load_state_dict(f"unidepth_{vit_variant[-1]}")
-            if state_dict is not None:
-                own = net.state_dict()
-                state_dict = {k: v for k, v in state_dict.items() if k in own}
-        if state_dict is None:
-            init_unidepth_(net, seed)
-        else:
-            net.load_state_dict(state_dict, strict=True)
-        self._net = net.eval().requires_grad_(False)
+        self._net = zoo.load_net(net, state_dict, seed, init=init_unidepth_)
         self._net_on_device = self.device.type == "cpu"
         self._net_bf16 = None
         self.ratio_bounds = tuple(ratio_bounds)
@@ -417,6 +386,71 @@ class UniDepthModel(DepthEstimationModel):
             out = self.net(x, rays)
         return DepthEstimationResult(depth=self._unpad(out["depth"], hp, wp, pads),
                                      confidence=self._unpad(out["confidence"], hp, wp, pads))
+
+    def _batch_inputs(self, rgbs, focal_length=None):
+        """Same-shaped (H, W, 3) frames in [0, 1] → the batch's inputs
+        before their uint8 rounding: the frames padded with the ImageNet
+        mean (0 once normalised) and resized as ``cv2.INTER_LINEAR`` does,
+        (B, 3, nh, nw) f32 in [0, 1]; the rays of the shared focal (nh, nw,
+        3) f32, None for the predicted camera; the padded shape and the
+        pads."""
+        h, w = rgbs[0].shape[:2]
+        pads, (hp, wp), rf, (nh, nw) = self._policy(h, w)
+        pl, pr, pt, pb = pads
+        x = torch.as_tensor(np.stack(rgbs), device=self.device).permute(0, 3, 1, 2)
+        canvas = self._mean[:, None, None].expand(len(rgbs), 3, hp, wp).clone()
+        canvas[:, :, pt:hp - pb, pl:wp - pr] = x
+        rs = F.interpolate(canvas, size=(nh, nw), mode="bilinear", align_corners=False,
+                           antialias=False)
+        rays = None
+        if focal_length is not None:
+            cam = torch.tensor([float(focal_length) * rf, (w / 2 + pl) * rf, (h / 2 + pt) * rf],
+                               dtype=torch.float32, device=self.device)
+            u = torch.arange(nw, dtype=torch.float32, device=self.device) + 0.5
+            v = torch.arange(nh, dtype=torch.float32, device=self.device) + 0.5
+            rx = ((u[None, :] - cam[1]) / cam[0]).expand(nh, nw)
+            ry = ((v[:, None] - cam[2]) / cam[0]).expand(nh, nw)
+            r = torch.stack([rx, ry, torch.ones_like(rx)], -1)
+            rays = r / torch.linalg.norm(r, dim=-1, keepdim=True)
+        return rs, rays, (hp, wp), pads
+
+    def _net_input(self, rs):
+        """``_batch_inputs``' resized frames → the net's input: rounded to
+        uint8 pixels and normalised."""
+        mean, std = self._mean[:, None, None], self._std[:, None, None]
+        return ((rs * 255.0).round().clamp(0, 255) / 255.0 - mean) / std
+
+    @staticmethod
+    def _batch_depth(depth, hw_pad, pads):
+        """The net's (B, nh, nw) depth resized to the padded shape and
+        cropped, f32."""
+        (hp, wp), (pl, pr, pt, pb) = hw_pad, pads
+        return resize_bilinear(depth.float()[:, None], (hp, wp))[:, 0, pt:hp - pb, pl:wp - pr]
+
+    @torch.no_grad()
+    def estimate_depth_batch(self, rgbs, focal_length=None, dtype: torch.dtype = torch.bfloat16):
+        """Depth for same-shaped frames with one shared focal (None: the
+        predicted camera), the post-SLAM metric path: one forward for the
+        batch, in bf16 (``dtype`` f32: the f32 net).  The frames are
+        prepared by ``_batch_inputs`` and ``_net_input``; the depth is
+        resized to the padded shape, cropped and rounded to f16, as the JAX
+        package returns it.  Returns (H, W) f32 numpy arrays; frames of
+        mixed shapes run one by one."""
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"the batch runs in bf16 or f32, not {dtype}")
+        rgbs = [np.asarray(r, np.float32) for r in rgbs]
+        if any(r.shape[:2] != rgbs[0].shape[:2] for r in rgbs):
+            return [d for r in rgbs for d in self.estimate_depth_batch([r], focal_length, dtype)]
+        rs, rays, hw_pad, pads = self._batch_inputs(rgbs, focal_length)
+        x = self._net_input(rs)
+        if rays is not None:
+            rays = rays.to(dtype)[None].expand(len(rgbs), -1, -1, -1)
+        if dtype == torch.float32:
+            with true_f32():
+                out = self.net(x, rays)
+        else:
+            out = self.net_bf16(x.to(dtype), rays)
+        return list(self._batch_depth(out["depth"], hw_pad, pads).half().float().cpu().numpy())
 
     @torch.no_grad()
     def estimate_sens_device(self, image_u8: torch.Tensor,

@@ -27,11 +27,13 @@ class SLAMMap:
 
     def project_map(self, pose_w2c: np.ndarray, intrinsics: np.ndarray,
                     camera_type: cam.CameraType, image_size: tuple,
-                    frame_idx: Optional[int] = None, window: int = 60) -> np.ndarray:
+                    frame_idx: Optional[int] = None, window: int = 60,
+                    knn_infill: bool = False) -> np.ndarray:
         """Render the map's depth from one camera: the points of keyframes
         within ``window`` frames of ``frame_idx``, z-buffered; returns
-        (H, W) depth, 0 where empty.  A panorama's depth is the range, and
-        it projects with the pixel-unit scales of ``image_size``."""
+        (H, W) depth, 0 where empty (with ``knn_infill``, filled from the
+        nearest hit pixel within 8 px).  A panorama's depth is the range,
+        and it projects with the pixel-unit scales of ``image_size``."""
         if frame_idx is not None:
             sel = np.abs(self.frame_inds - frame_idx) <= window
         else:
@@ -59,7 +61,23 @@ class SLAMMap:
         depth = np.full(H * W, np.inf, np.float32)
         np.minimum.at(depth, vi[ok] * W + ui[ok], z[ok])  # z-buffer
         depth[~np.isfinite(depth)] = 0.0
-        return depth.reshape(H, W)
+        depth = depth.reshape(H, W)
+        if knn_infill:
+            from ..ops.knn import knn_infill_depth
+
+            depth = knn_infill_depth(depth)
+        return depth
+
+    def uv_coverage_score(self, pose_w2c: np.ndarray, intrinsics: np.ndarray,
+                          camera_type: cam.CameraType, image_size: tuple,
+                          frame_idx: Optional[int] = None, grid: int = 10) -> float:
+        """The share of a grid×grid partition of the image that at least
+        one projected map point hits."""
+        depth = self.project_map(pose_w2c, intrinsics, camera_type, image_size, frame_idx)
+        H, W = depth.shape
+        hh, ww = H // grid, W // grid
+        occ = depth[: hh * grid, : ww * grid].reshape(grid, hh, grid, ww)
+        return float((occ > 0).any(axis=(1, 3)).mean())
 
 
 @dataclass

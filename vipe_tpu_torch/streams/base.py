@@ -56,8 +56,23 @@ class VideoFrame:
     pose: Optional[np.ndarray] = None
     intrinsics: Optional[np.ndarray] = None
 
+    SKY_PROMPT = "sky"
+
     def size(self) -> tuple:
         return self.rgb.shape[0], self.rgb.shape[1]
+
+    @property
+    def sky_mask(self) -> np.ndarray:
+        """(H, W) bool, True where an instance labelled ``sky`` lies: valid
+        for SLAM's weights, left out of depth alignment."""
+        out = np.zeros(self.size(), bool)
+        if self.instance is not None and self.instance_phrases:
+            sky_ids = [i for i, p in self.instance_phrases.items() if p == self.SKY_PROMPT]
+            if sky_ids:
+                lut = np.zeros(int(max(self.instance.max(), max(sky_ids))) + 1, bool)
+                lut[sky_ids] = True
+                out = lut[self.instance]
+        return out
 
     def resize(self, new_size: tuple) -> "VideoFrame":
         h1, w1 = new_size
