@@ -59,23 +59,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    time per frame, and checks every frame's depth; then runs the
    processor alone on that run's SLAM output with the threshold set so
    that the other branch (metric or PriorDA) runs;
-   holds the two volume runs, the two MEI runs, the two UniDepth runs and
-   the two depth runs to each other: equal keyframes, removals and K1
-   launches, bit-equal trajectories and intrinsics (and depths);
-10. GeoCalib: fits the LM on the card to exact up and latitude fields at
+10. TrackAnything (seeded random weights, IEEE f32): holds
+   GroundingDINO (Swin-T, BERT-base; its encoder and query selection, then
+   its decoder from the card's selection) on the 736×1344 canvas of a 720p
+   frame with full.yaml's caption, SAM ViT-B (the 1024² encoder, both
+   decoder passes on 32 fixed boxes, the composite) and DeAOT R50-L (the
+   reference step on a fixed three-object map, the propagation step, at
+   592×1040) on the card to the CPU, counts the discrete results that flip
+   (rank swaps of the selection, boxes over the threshold, mask pixels,
+   instance and slot maps) and times each net against its f32 FLOP bound;
+   then drives the 720p video twice with ``init.instance:
+   track_anything`` and full.yaml's ten phrases, the card's nets in the
+   model cache, and records boxes kept per detection, instances per frame,
+   DeAOT's slots and the stage's host seconds and peaks;
+   holds the two volume runs, the two MEI runs, the two UniDepth runs, the
+   two depth runs and the two TrackAnything runs to each other: equal
+   keyframes, removals and K1 launches, bit-equal trajectories and
+   intrinsics (and depths, and instance maps);
+11. GeoCalib: fits the LM on the card to exact up and latitude fields at
    320×544 (pinhole over three frames, simple_mei with k1) and holds it to
    ground truth; holds ``GeoCalibNet`` (seeded weights) on the card to
    the same module on the CPU and times its forward; drives the main path
    with ``init.intrinsics: geocalib`` (volume), its threshold calibrated
    on the GeoCalib-stamped stream, and checks that every frame carries
    the GeoCalib result; prints the stage's host seconds and peak;
-11. times K1 (volume runs) and K2 (alt runs) on the coords captured in the
+12. times K1 (volume runs) and K2 (alt runs) on the coords captured in the
    single-view and the rig runs, with seeded features of the same shapes,
    warm and with a cold L2 cache, and holds both against their plain
    versions on a 720p rig edge set with cross-view edges (the main path
    proposes none), in volume/bf16, volume/int8 and alt;
-12. prints the ``kernels`` JSON line (K1's launches on the GeoCalib, the
-    UniDepth and the depth paths too) and, last, the ``ok`` JSON line.
+13. prints the ``kernels`` JSON line (K1's launches on the GeoCalib, the
+    UniDepth, the depth and the TrackAnything paths too) and, last, the
+    ``ok`` JSON line.
 
 Kernel times come from CUDA events: the mean of back-to-back launches
 (warm L2) as ``ms``, and the median of launches each preceded by a 128 MB
@@ -88,6 +103,7 @@ directory that does not hold the ``vipe_tpu_torch`` package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import json
@@ -1763,12 +1779,288 @@ def depth_nets_phase():
     return out
 
 
+# ------------------------------------------------------------- TrackAnything
+
+# configs/pipeline/full.yaml's phrases
+TA_PHRASES = ["person", "animal", "vehicle", "ball", "balloon", "gun", "pet", "car", "bus", "sky"]
+TA_NET_RTOL = 1e-3  # card against CPU, both IEEE f32, relative to the largest value
+SAM_BOXES = 32  # one decoder batch (SamPredictor.SEG_CHUNK)
+SAM_MIN_AREA = 200  # SegTracker's
+
+
+def _ta_frames(n: int = 2):
+    """Two seeded 720p uint8 frames of the main path's canvas (5, 3) px
+    apart, with two flat blocks of colour."""
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, 256, (MAIN_H + 64, MAIN_W + 64, 3), dtype=np.uint8)
+    base[100:400, 200:600] = (200, 40, 40)
+    base[350:700, 700:1000] = (30, 60, 220)
+    return [base[3 * k: 3 * k + MAIN_H, 5 * k: 5 * k + MAIN_W].copy() for k in range(n)]
+
+
+def _ta_boxes():
+    """``SAM_BOXES`` seeded boxes over a 720p frame, 40-640 px a side."""
+    rng = np.random.default_rng(8)
+    x0 = rng.uniform(0, MAIN_W - 40, SAM_BOXES)
+    y0 = rng.uniform(0, MAIN_H - 40, SAM_BOXES)
+    bw, bh = rng.uniform(40, 640, SAM_BOXES), rng.uniform(40, 400, SAM_BOXES)
+    return np.stack([x0, y0, np.minimum(x0 + bw, MAIN_W), np.minimum(y0 + bh, MAIN_H)],
+                    -1).astype(np.float32)
+
+
+def _ta_instance():
+    """A fixed 720p instance map: three objects (ids 4, 9, 12)."""
+    inst = np.zeros((MAIN_H, MAIN_W), np.int32)
+    inst[100:400, 200:600] = 4
+    inst[350:700, 700:1000] = 9
+    inst[50:200, 900:1250] = 12
+    return inst
+
+
+def _flips(ref, got) -> dict:
+    ref, got = np.asarray(ref), np.asarray(got)
+    return {"differ": int((ref != got).sum()), "of": int(ref.size)}
+
+
+def track_anything_nets_phase():
+    """TrackAnything's nets at their published widths, seeded random weights
+    (each built alike on the CPU and on the card), in IEEE f32: GroundingDINO
+    (Swin-T, BERT-base) on the 736×1344 canvas of a 720p frame with
+    full.yaml's caption (the encoder and query selection on each device,
+    the decoder on each from the card's selection); SAM ViT-B's encoder on the 1024² canvas and its
+    decoder (both passes, the resize to the frame) on ``SAM_BOXES`` fixed
+    boxes; DeAOT R50-L's reference step (a fixed three-object map) and
+    propagation step at 592×1040.  Each held on the card to its CPU run
+    within ``TA_NET_RTOL``; the discrete results on the same inputs (boxes
+    over the 0.35 threshold, SAM's masks and composite, DeAOT's map)
+    compared and their flips counted; each timed warm by CUDA events
+    against its f32 FLOP bound.  Returns the record and the card's three
+    nets."""
+    import torch
+
+    from vipe_tpu_torch.priors.track_anything.deaot import DeAOTTracker
+    from vipe_tpu_torch.priors.track_anything.gdino import GroundingDINODetector
+    from vipe_tpu_torch.priors.track_anything.sam import SamPredictor
+    from vipe_tpu_torch.utils.device import true_f32
+
+    frames = _ta_frames()
+    out = {"precision_check": "f32 convolutions and matmuls, TF32 off", "tol": TA_NET_RTOL}
+    nets = {}
+
+    # GroundingDINO: the encoder and its query selection on each device,
+    # then the decoder on each device from the card's selection (near-equal
+    # scores swap ranks between any two runs that round differently, and a
+    # swap hands two queries each other's learned embeddings)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        det = GroundingDINODetector(device=dev)
+        ids, *text = det.text_inputs(TA_PHRASES)
+        args = [det.preprocess(frames[0])] + [torch.as_tensor(a, device=dev) for a in text]
+        with torch.no_grad(), true_f32():
+            enc = det.net.encode(*args)
+        outs[dev] = det, args, enc, det.net.select(enc["scores"])
+    sel = outs["cuda"][3]
+    dec = {}
+    for dev, (det, args, enc, _) in outs.items():
+        with torch.no_grad(), true_f32():
+            logits, boxes = det.net.decode(enc, sel.to(dev), args[-1])
+        dec[dev] = logits[..., :len(ids)].cpu(), boxes.cpu()
+    det, args = outs["cuda"][:2]
+    with torch.no_grad(), true_f32():
+        timing = _net_timing(lambda: det.net(*args), F32_FLOPS_PER_S)
+    kept = {dev: (torch.sigmoid(o[0][0]).amax(-1) > det.box_threshold).numpy()
+            for dev, o in dec.items()}
+    enc_c, enc_g = outs["cpu"][2], outs["cuda"][2]
+    sel_c = outs["cpu"][3].cpu()
+    out["gdino"] = {
+        "canvas": list(args[0].shape[-2:]), "text_tokens": len(ids), "queries": int(sel.shape[1]),
+        "params": sum(p.numel() for p in det.net.parameters()),
+        "memory_rel_err": _rel_err(enc_c["memory"], enc_g["memory"]),
+        "text_rel_err": _rel_err(enc_c["text"], enc_g["text"]),
+        "scores_rel_err": _rel_err(enc_c["scores"], enc_g["scores"]),
+        "selection_rank_flips": {"differ": int((sel_c != sel.cpu()).sum()),
+                                 "of": int(sel.numel()),
+                                 "tokens_not_shared": len(set(sel_c[0].tolist())
+                                                          ^ set(sel.cpu()[0].tolist()))},
+        "logits_rel_err": _rel_err(dec["cpu"][0], dec["cuda"][0]),
+        "boxes_rel_err": _rel_err(dec["cpu"][1], dec["cuda"][1]),
+        "over_threshold": int(kept["cuda"].sum()), "threshold_flips": _flips(kept["cpu"],
+                                                                             kept["cuda"]),
+        "forward_f32": timing}
+    ta = {"gdino": det}
+    del outs, dec, args, enc_c, enc_g
+    torch.cuda.empty_cache()
+
+    # SAM ViT-B
+    boxes = _ta_boxes()
+    res = {}
+    for dev in ("cpu", "cuda"):
+        sam = SamPredictor("vit_b", device=dev)
+        sam.set_image(frames[0])
+        logits = sam.mask_logits(sam.canvas_boxes(boxes))
+        res[dev] = (sam, sam._image_embed.cpu(), logits.cpu(),
+                    sam.segment_composite(boxes, SAM_MIN_AREA, 1))
+    sam = res["cuda"][0]
+    canvas = sam.canvas(frames[0])
+    pts = sam.canvas_boxes(boxes)
+    with torch.no_grad(), true_f32():
+        enc = _net_timing(lambda: sam.net.image_encoder(canvas), F32_FLOPS_PER_S)
+    dec = _net_timing(lambda: sam.mask_logits(pts), F32_FLOPS_PER_S)
+    (_, emb_c, lg_c, (inst_c, ids_c)), (_, emb_g, lg_g, (inst_g, ids_g)) = res["cpu"], \
+        res["cuda"]
+    out["sam_vit_b"] = {
+        "canvas": [sam.img_size, sam.img_size], "boxes": SAM_BOXES,
+        "params": sum(p.numel() for p in sam.net.parameters()),
+        "embedding_rel_err": _rel_err(emb_c, emb_g), "mask_logits_rel_err": _rel_err(lg_c, lg_g),
+        "mask_flips": _flips(lg_c > 0, lg_g > 0),
+        "ids_kept": int((ids_g > 0).sum()), "ids_equal": bool(np.array_equal(ids_c, ids_g)),
+        "instance_flips": _flips(inst_c, inst_g),
+        "encoder_f32": enc, "decoder_two_passes_f32": dec}
+    ta["sam"] = sam
+    del res, canvas
+    torch.cuda.empty_cache()
+
+    # DeAOT R50-L
+    res = {}
+    for dev in ("cpu", "cuda"):
+        tr = DeAOTTracker(device=dev)
+        img = tr.preprocess(frames[0])
+        mems, _ = tr.reference_memories(img, tr.slots(_ta_instance(), img.shape[-2:]))
+        tr.add_reference(frames[0], _ta_instance())
+        logits = tr.propagate_logits(tr.preprocess(frames[1]))[0]
+        res[dev] = (tr, [m.cpu() for layer in mems for m in layer], logits.cpu(),
+                    tr.propagate(frames[1]))
+    tr = res["cuda"][0]
+    img0, img1 = tr.preprocess(frames[0]), tr.preprocess(frames[1])
+    slots = tr.slots(_ta_instance(), img0.shape[-2:])
+    ref_t = _net_timing(lambda: tr.reference_memories(img0, slots), F32_FLOPS_PER_S)
+    prop_t = _net_timing(lambda: tr.propagate_logits(img1), F32_FLOPS_PER_S)
+    out["deaot_r50_l"] = {
+        "grid": list(img0.shape[-2:]), "params": sum(p.numel() for p in tr.net.parameters()),
+        "memory_rel_err": max(_rel_err(a, b) for a, b in zip(res["cpu"][1], res["cuda"][1])),
+        "logits_rel_err": _rel_err(res["cpu"][2], res["cuda"][2]),
+        "map_flips": _flips(res["cpu"][3], res["cuda"][3]),
+        "reference_step_f32": ref_t, "propagation_step_f32": prop_t}
+    tr.restart()
+    ta["deaot"] = tr
+    del res
+    torch.cuda.empty_cache()
+
+    errs = {k: v for net in ("gdino", "sam_vit_b", "deaot_r50_l")
+            for k, v in ((f"{net}.{n}", out[net][n]) for n in out[net] if n.endswith("rel_err"))}
+    if not max(errs.values()) <= TA_NET_RTOL:
+        raise AssertionError(f"TrackAnything nets on the card against the CPU: {errs} "
+                             f"(limit {TA_NET_RTOL})")
+    return out, ta
+
+
+@contextlib.contextmanager
+def track_anything_spy():
+    """While active, records each detection's kept boxes and instances,
+    each tracked frame's instances and DeAOT's slots in use, and the share
+    of each frame's pixels its mask leaves SLAM; yields the dict."""
+    from vipe_tpu_torch.pipeline.processors import TrackAnythingProcessor
+    from vipe_tpu_torch.priors.track_anything import SegTracker, TrackAnythingPipeline
+    from vipe_tpu_torch.priors.track_anything.gdino import GroundingDINODetector
+
+    orig = (GroundingDINODetector.run_grounding, SegTracker.detect_and_seg,
+            TrackAnythingPipeline.track, TrackAnythingProcessor.__call__)
+    seen = {"detections": [], "frames": [], "valid_share": []}
+
+    def ground(self, *args, **kwargs):
+        out = orig[0](self, *args, **kwargs)
+        seen["detections"].append({"boxes_kept": len(out[0])})
+        return out
+
+    def detect(self, rgb, phrases):
+        instance, id2phrase = orig[1](self, rgb, phrases)
+        seen["detections"][-1]["instances"] = len(id2phrase)
+        return instance, id2phrase
+
+    def track(self, frame_idx, rgb):
+        instance, present = orig[2](self, frame_idx, rgb)
+        seen["frames"].append({"instances": len(present),
+                               "slots": len(self.tracker.slot_to_id)})
+        return instance, present
+
+    def process(self, frame_idx, frame):
+        frame = orig[3](self, frame_idx, frame)
+        seen["valid_share"].append(float(frame.mask.mean()))
+        return frame
+
+    GroundingDINODetector.run_grounding, SegTracker.detect_and_seg, \
+        TrackAnythingPipeline.track, TrackAnythingProcessor.__call__ = ground, detect, track, \
+        process
+    try:
+        yield seen
+    finally:
+        GroundingDINODetector.run_grounding, SegTracker.detect_and_seg, \
+            TrackAnythingPipeline.track, TrackAnythingProcessor.__call__ = orig
+
+
+TA_STAGES = ("track_anything", "ta_detect", "ta_propagate", "ta_host_mask")
+
+
+def track_anything_main_path_phase(label, thresh):
+    """``init.instance: track_anything`` with full.yaml's phrases on the
+    seeded 32-frame 720p stream (volume, FOV intrinsics; detections at
+    frames 0 and 20, DeAOT between them), the engine from the model cache.
+    Every frame gets an instance map of the frame's size; some detection
+    must keep an instance.  Records the stages' host seconds and peaks,
+    boxes kept per detection, instances per frame, DeAOT's slots and the
+    maps' sha1."""
+    init = {"intrinsics": "fov", "fov_deg": 60.0, "instance": "track_anything",
+            "phrases": TA_PHRASES}
+    keep = {}
+    with track_anything_spy() as seen:
+        rec, captured = main_path_phase(label, {}, MAIN_FRAMES, thresh, ["corr_lookup"],
+                                        init=init, keep=keep)
+    masks = np.stack(list(keep["output"].instance_masks))
+    if masks.shape != (MAIN_FRAMES, MAIN_H, MAIN_W) or len(seen["frames"]) != MAIN_FRAMES:
+        raise AssertionError(f"{label}: instance maps {masks.shape}, {len(seen['frames'])} "
+                             "tracked frames")
+    if not any(d["instances"] for d in seen["detections"]):
+        raise AssertionError(f"{label}: no detection kept an instance {seen['detections']}")
+    stages, peaks = rec["stages_host_s"], rec["stage_peak_mem_gib"]
+    rec["track_anything"] = {
+        "phrases": TA_PHRASES, "detections": seen["detections"],
+        "instances_per_frame": [f["instances"] for f in seen["frames"]],
+        "deaot_slots_per_frame": [f["slots"] for f in seen["frames"]],
+        "frames_with_instances": int((masks.reshape(MAIN_FRAMES, -1) > 0).any(1).sum()),
+        "slam_valid_share_per_frame": [round(v, 4) for v in seen["valid_share"]],
+        "phrases_of_ids": dict(collections.Counter(keep["output"].mask_phrases.values())),
+        "stages_host_s": {k: stages[k] for k in TA_STAGES if k in stages},
+        "stage_peak_mem_gib": {k: peaks[k] for k in TA_STAGES if k in peaks},
+        "instance_sha1": hashlib.sha1(np.ascontiguousarray(masks.astype(np.int32)).tobytes()
+                                      ).hexdigest()}
+    return rec, captured
+
+
+def track_anything_phases(thresh, main_paths, captured):
+    """The nets, then the main path twice with the card's nets in the
+    model cache (two runs of one code, the same bits)."""
+    from vipe_tpu_torch.models import model_cache
+    from vipe_tpu_torch.priors.track_anything import TrackAnythingPipeline
+
+    rec, ta = track_anything_nets_phase()
+    print(json.dumps({"track_anything_nets": rec}), flush=True)
+    key = ("track_anything", TrackAnythingPipeline, tuple(TA_PHRASES), (), "cuda")
+    model_cache.cached_thread(key, lambda: TrackAnythingPipeline(
+        TA_PHRASES, detector=ta["gdino"], tracker=ta["deaot"], segmentor=ta["sam"],
+        device="cuda"))
+    for label in ("track_anything", "track_anything_again"):
+        main_paths[label], captured[label] = track_anything_main_path_phase(label, thresh)
+        print(json.dumps({"main_path": main_paths[label]}), flush=True)
+    model_cache.clear()
+
+
 def determinism_check(main_paths):
     """Two runs of one main path in one call must agree: keyframes,
     removals and K1 launches equal, intrinsics and trajectory bit-equal."""
     out = {}
     for a, b in (("volume", "volume_again"), ("mei_masks_depth", "mei_masks_depth_again"),
-                 ("unidepth", "unidepth_again"), ("depth_align", "depth_align_again")):
+                 ("unidepth", "unidepth_again"), ("depth_align", "depth_align_again"),
+                 ("track_anything", "track_anything_again")):
         ra, rb = main_paths[a], main_paths[b]
         same = {k: ra[k] == rb[k] for k in ("keyframes", "n_removals", "late_removals",
                                              "intrinsics_hex", "trajectory_sha1")}
@@ -1777,6 +2069,9 @@ def determinism_check(main_paths):
             same["depth_sha1"] = (ra["depth_align"]["depth"]["sha1"]
                                   == rb["depth_align"]["depth"]["sha1"])
             same["branch"] = ra["depth_align"]["branch"] == rb["depth_align"]["branch"]
+        if "track_anything" in ra:
+            same["instance_sha1"] = (ra["track_anything"]["instance_sha1"]
+                                     == rb["track_anything"]["instance_sha1"])
         if not all(same.values()):
             raise AssertionError(f"runs {a} and {b} of one code differ: {same}")
         out[f"{a} / {b}"] = same
@@ -1870,6 +2165,7 @@ def main():
     from vipe_tpu_torch.models import model_cache
 
     model_cache.clear()
+    track_anything_phases(thresh, main_paths, captured)
 
     print(json.dumps({"determinism": determinism_check(main_paths)}), flush=True)
     print(json.dumps({"geocalib_lm": geocalib_lm_phase()}), flush=True)
@@ -1881,6 +2177,7 @@ def main():
     k1["geocalib_launches"] = main_paths["geocalib"]["launches"]["corr_lookup"]
     k1["unidepth_launches"] = main_paths["unidepth"]["launches"]["corr_lookup"]
     k1["depth_align_launches"] = main_paths["depth_align"]["launches"]["corr_lookup"]
+    k1["track_anything_launches"] = main_paths["track_anything"]["launches"]["corr_lookup"]
     k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
     k1["rig_launches"] = main_paths["rig_volume"]["launches"]["corr_lookup"]
     k2["rig_launches"] = main_paths["rig_alt"]["launches"]["corr_fused"]

@@ -167,11 +167,28 @@ def test_port_imports_no_jax(port_run):
 
 
 def test_unported_pipeline_options_raise():
-    """TrackAnything instances are refused; the post-SLAM depth is not."""
+    """The options the port does not run are refused: a rig with
+    TrackAnything instances (before a frame is read), ``slam.sparse_tracks``
+    and ``slam.infill_dense_disp``; the post-SLAM depth and TrackAnything on
+    one view are not."""
     from vipe_tpu_torch.pipeline.default import DefaultAnnotationPipeline
+    from vipe_tpu_torch.slam.system import SLAMSystem
+    from vipe_tpu_torch.streams.base import MultiviewVideoList, VideoStream
 
-    with pytest.raises(NotImplementedError):
-        DefaultAnnotationPipeline(device="cpu", init={"instance": "track_anything"})
+    class Unread(VideoStream):
+        def __len__(self):
+            return 4
+
+        def __iter__(self):
+            raise AssertionError("a frame was read")
+
+    pipe = DefaultAnnotationPipeline(device="cpu", init={"instance": "track_anything"})
+    rig = np.tile(np.asarray([0, 0, 0, 0, 0, 0, 1], np.float32), (2, 1))
+    with pytest.raises(NotImplementedError, match="rig"):
+        pipe.run(MultiviewVideoList("rig", [Unread(), Unread()], rig))
+    for key, value in (("sparse_tracks", {"name": "lk"}), ("infill_dense_disp", True)):
+        with pytest.raises(NotImplementedError, match=key):
+            SLAMSystem(config={key: value}, device="cpu")
     DefaultAnnotationPipeline(device="cpu", post={"depth_align_model": "adaptive_unidepth-l_vda",
                                                   "overlap_vda": True},
                               init={"overlap": True})
@@ -204,9 +221,9 @@ def test_port_config_matches_jax_default():
     assert port == jax_cfg
 
 
-@pytest.mark.parametrize("name", ["static_vda", "no_vda"])
+@pytest.mark.parametrize("name", ["static_vda", "no_vda", "full"])
 def test_port_config_variants_match_jax(name):
-    """configs/pipeline/{static_vda,no_vda}.yaml key for key; only the
+    """configs/pipeline/{static_vda,no_vda,full}.yaml key for key; only the
     pipeline class differs."""
     from vipe_tpu.utils.config import compose as jcompose
     from vipe_tpu_torch.utils.config import compose, get_config_path

@@ -1,11 +1,14 @@
 """Flax → PyTorch weight conversion for DroidNet, GeoCalib, UniDepth, Depth
-Anything v2 and Video Depth Anything.
+Anything v2, Video Depth Anything, SAM, GroundingDINO and DeAOT.
 
 ``droidnet_state_dict_from_flax``, ``geocalib_state_dict_from_flax``,
-``unidepth_state_dict_from_flax``, ``dav2_state_dict_from_flax`` and
-``vda_state_dict_from_flax`` are the inverses of
-``vipe_tpu.models.convert.convert_droidnet``, ``convert_geocalib``,
-``convert_unidepth``, ``convert_dav2`` and ``convert_vda``: they turn the
+``unidepth_state_dict_from_flax``, ``dav2_state_dict_from_flax``,
+``vda_state_dict_from_flax`` and ``sam_state_dict_from_flax`` are the
+inverses of ``vipe_tpu.models.convert.convert_droidnet``,
+``convert_geocalib``, ``convert_unidepth``, ``convert_dav2``,
+``convert_vda`` and ``convert_sam``; ``gdino_state_dict_from_flax`` and
+``deaot_state_dict_from_flax`` those of the track_anything packages'
+``convert_gdino`` and ``convert_deaot``.  They turn the
 JAX package's param trees (given as numpy arrays) into this port's state
 dicts, in ViPE's key layout, so both packages can run the same weights.
 Conv kernels go from flax ``(kh, kw, I, O)`` to torch ``(O, I, kh, kw)``.
@@ -308,4 +311,252 @@ def vda_state_dict_from_flax(params) -> dict:
     _dpt_head_from_flax(sd, "head", p)
     for m in range(4):
         _motion_from_flax(sd, f"head.motion_modules.{m}", p[f"motion{m}"])
+    return sd
+
+
+# ------------------------------------------------------------ TrackAnything
+
+
+def _put_mlp(sd: dict, key: str, p: dict):
+    j = 0
+    while f"layers_{j}" in p:
+        _put_linear(sd, f"{key}.layers.{j}", p[f"layers_{j}"])
+        j += 1
+
+
+def sam_state_dict_from_flax(params) -> dict:
+    """``{"encoder", "prompt", "decoder", "mask_prompt"}`` of ``vipe_tpu``'s
+    ``SamPredictor`` (numpy leaves) → the port's ``Sam`` state dict, Meta's
+    key layout (inverse of ``convert_sam``)."""
+    enc = params["encoder"]["params"]
+    sd: dict = {}
+    e = "image_encoder"
+    _put(sd, f"{e}.patch_embed.proj", enc["patch_embed"])
+    sd[f"{e}.pos_embed"] = _tensor(enc["pos_embed"])
+    i = 0
+    while f"block{i}" in enc:
+        b, pb = f"{e}.blocks.{i}", enc[f"block{i}"]
+        _put_norm(sd, f"{b}.norm1", pb["norm1"])
+        _put_linear(sd, f"{b}.attn.qkv", pb["attn"]["qkv"])
+        _put_linear(sd, f"{b}.attn.proj", pb["attn"]["proj"])
+        sd[f"{b}.attn.rel_pos_h"] = _tensor(pb["attn"]["rel_pos_h"])
+        sd[f"{b}.attn.rel_pos_w"] = _tensor(pb["attn"]["rel_pos_w"])
+        _put_norm(sd, f"{b}.norm2", pb["norm2"])
+        _put_linear(sd, f"{b}.mlp.lin1", pb["mlp_lin1"])
+        _put_linear(sd, f"{b}.mlp.lin2", pb["mlp_lin2"])
+        i += 1
+    for j, name in enumerate(("neck_conv1", "neck_ln1", "neck_conv2", "neck_ln2")):
+        (_put if "conv" in name else _put_norm)(sd, f"{e}.neck.{j}", enc[name])
+
+    pr, pp = "prompt_encoder", params["prompt"]["params"]
+    sd[f"{pr}.pe_layer.positional_encoding_gaussian_matrix"] = _tensor(pp["pe_gaussian"])
+    for k in (2, 3):
+        sd[f"{pr}.point_embeddings.{k}.weight"] = _tensor(pp[f"point_embed_{k}"])[None]
+    sd[f"{pr}.no_mask_embed.weight"] = _tensor(pp["no_mask_embed"])[None]
+    mp = params["mask_prompt"]["params"]
+    for j, name in ((0, "conv1"), (1, "ln1"), (3, "conv2"), (4, "ln2"), (6, "conv3")):
+        (_put if "conv" in name else _put_norm)(sd, f"{pr}.mask_downscaling.{j}", mp[name])
+
+    d, dec = "mask_decoder", params["decoder"]["params"]
+    sd[f"{d}.iou_token.weight"] = _tensor(dec["iou_token"])
+    sd[f"{d}.mask_tokens.weight"] = _tensor(dec["mask_tokens"])
+
+    def attn(key, p):
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _put_linear(sd, f"{key}.{name}", p[name])
+
+    for i in range(2):
+        b, pb = f"{d}.transformer.layers.{i}", dec[f"layer{i}"]
+        attn(f"{b}.self_attn", pb["self_attn"])
+        attn(f"{b}.cross_attn_token_to_image", pb["cross_attn_t2i"])
+        attn(f"{b}.cross_attn_image_to_token", pb["cross_attn_i2t"])
+        for n in (1, 2, 3, 4):
+            _put_norm(sd, f"{b}.norm{n}", pb[f"norm{n}"])
+        _put_linear(sd, f"{b}.mlp.lin1", pb["mlp_lin1"])
+        _put_linear(sd, f"{b}.mlp.lin2", pb["mlp_lin2"])
+    attn(f"{d}.transformer.final_attn_token_to_image", dec["final_attn"])
+    _put_norm(sd, f"{d}.transformer.norm_final_attn", dec["norm_final"])
+    _put_conv_transpose(sd, f"{d}.output_upscaling.0", dec["upscale1"])
+    _put_norm(sd, f"{d}.output_upscaling.1", dec["upscale_ln"])
+    _put_conv_transpose(sd, f"{d}.output_upscaling.3", dec["upscale2"])
+    for k in range(4):
+        for j in range(3):
+            _put_linear(sd, f"{d}.output_hypernetworks_mlps.{k}.layers.{j}",
+                        dec[f"hyper{k}_lin{j}"])
+    for j in range(3):
+        _put_linear(sd, f"{d}.iou_prediction_head.layers.{j}", dec[f"iou_lin{j}"])
+    return sd
+
+
+def _put_mha(sd: dict, key: str, p: dict):
+    """q/k/v Dense → ``nn.MultiheadAttention``'s packed ``in_proj``."""
+    sd[f"{key}.in_proj_weight"] = _tensor(np.concatenate(
+        [np.asarray(p[n]["kernel"], np.float32).T for n in ("q_proj", "k_proj", "v_proj")]))
+    sd[f"{key}.in_proj_bias"] = _tensor(np.concatenate(
+        [np.asarray(p[n]["bias"], np.float32) for n in ("q_proj", "k_proj", "v_proj")]))
+    _put_linear(sd, f"{key}.out_proj", p["out_proj"])
+
+
+def _put_all_linear(sd: dict, key: str, p: dict, names):
+    for name in names:
+        _put_linear(sd, f"{key}.{name}", p[name])
+
+
+_MSDEFORM = ("sampling_offsets", "attention_weights", "value_proj", "output_proj")
+
+
+def gdino_state_dict_from_flax(params) -> dict:
+    """``vipe_tpu``'s ``GroundingDINOModel`` params (numpy leaves) → the
+    port's state dict, the reference's key layout (inverse of
+    ``convert_gdino``)."""
+    p = params["params"] if "params" in params else params
+    sd: dict = {}
+    bb, pb = "backbone.0", p["backbone"]
+    _put(sd, f"{bb}.patch_embed.proj", pb["patch_embed_proj"])
+    _put_norm(sd, f"{bb}.patch_embed.norm", pb["patch_embed_norm"])
+    i = 0
+    while f"layers_{i}_blocks_0" in pb:
+        b = 0
+        while f"layers_{i}_blocks_{b}" in pb:
+            k, q = f"{bb}.layers.{i}.blocks.{b}", pb[f"layers_{i}_blocks_{b}"]
+            _put_norm(sd, f"{k}.norm1", q["norm1"])
+            _put_norm(sd, f"{k}.norm2", q["norm2"])
+            _put_all_linear(sd, f"{k}.attn", q["attn"], ("qkv", "proj"))
+            sd[f"{k}.attn.relative_position_bias_table"] = _tensor(
+                q["attn"]["relative_position_bias_table"])
+            _put_all_linear(sd, f"{k}.mlp", q["mlp"], ("fc1", "fc2"))
+            b += 1
+        if f"layers_{i}_downsample" in pb:
+            q = pb[f"layers_{i}_downsample"]
+            _put_norm(sd, f"{bb}.layers.{i}.downsample.norm", q["norm"])
+            _put_linear(sd, f"{bb}.layers.{i}.downsample.reduction", q["reduction"])
+        i += 1
+    for i in (1, 2, 3):
+        _put_norm(sd, f"{bb}.norm{i}", pb[f"out_norm{i}"])
+
+    pt = p["bert"]
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        sd[f"bert.embeddings.{name}.weight"] = _tensor(pt[name])
+    _put_norm(sd, "bert.embeddings.LayerNorm", pt["embeddings_norm"])
+    i = 0
+    while f"layer_{i}" in pt:
+        k, q = f"bert.encoder.layer.{i}", pt[f"layer_{i}"]
+        _put_all_linear(sd, f"{k}.attention.self", q["attention_self"], ("query", "key", "value"))
+        _put_linear(sd, f"{k}.attention.output.dense", q["attention_output_dense"])
+        _put_norm(sd, f"{k}.attention.output.LayerNorm", q["attention_output_norm"])
+        _put_linear(sd, f"{k}.intermediate.dense", q["intermediate_dense"])
+        _put_linear(sd, f"{k}.output.dense", q["output_dense"])
+        _put_norm(sd, f"{k}.output.LayerNorm", q["output_norm"])
+        i += 1
+    _put_linear(sd, "feat_map", p["feat_map"])
+
+    i = 0
+    while f"input_proj_{i}" in p:
+        _put(sd, f"input_proj.{i}.0", p[f"input_proj_{i}"])
+        _put_norm(sd, f"input_proj.{i}.1", p[f"input_proj_norm_{i}"])
+        i += 1
+    sd["transformer.level_embed"] = _tensor(p["level_embed"])
+
+    i = 0
+    while f"enc_layer_{i}" in p:
+        k, q = f"transformer.encoder.fusion_layers.{i}", p[f"fusion_{i}"]
+        _put_norm(sd, f"{k}.layer_norm_v", q["layer_norm_v"])
+        _put_norm(sd, f"{k}.layer_norm_l", q["layer_norm_l"])
+        _put_all_linear(sd, f"{k}.attn", q["attn"], ("v_proj", "l_proj", "values_v_proj",
+                                                      "values_l_proj", "out_v_proj",
+                                                      "out_l_proj"))
+        sd[f"{k}.gamma_v"] = _tensor(q["gamma_v"])
+        sd[f"{k}.gamma_l"] = _tensor(q["gamma_l"])
+        k, q = f"transformer.encoder.text_layers.{i}", p[f"text_layer_{i}"]
+        _put_mha(sd, f"{k}.self_attn", q["self_attn"])
+        _put_all_linear(sd, k, q, ("linear1", "linear2"))
+        _put_norm(sd, f"{k}.norm1", q["norm1"])
+        _put_norm(sd, f"{k}.norm2", q["norm2"])
+        k, q = f"transformer.encoder.layers.{i}", p[f"enc_layer_{i}"]
+        _put_all_linear(sd, f"{k}.self_attn", q["self_attn"], _MSDEFORM)
+        _put_norm(sd, f"{k}.norm1", q["norm1"])
+        _put_all_linear(sd, k, q, ("linear1", "linear2"))
+        _put_norm(sd, f"{k}.norm2", q["norm2"])
+        i += 1
+
+    _put_linear(sd, "transformer.enc_output", p["enc_output"])
+    _put_norm(sd, "transformer.enc_output_norm", p["enc_output_norm"])
+    _put_mlp(sd, "transformer.enc_out_bbox_embed", p["enc_out_bbox_embed"])
+    sd["transformer.tgt_embed.weight"] = _tensor(p["tgt_embed"])
+
+    i = 0
+    while f"dec_layer_{i}" in p:
+        k, q = f"transformer.decoder.layers.{i}", p[f"dec_layer_{i}"]
+        _put_mha(sd, f"{k}.self_attn", q["self_attn"])
+        _put_norm(sd, f"{k}.norm2", q["norm2"])
+        _put_mha(sd, f"{k}.ca_text", q["ca_text"])
+        _put_norm(sd, f"{k}.catext_norm", q["catext_norm"])
+        _put_all_linear(sd, f"{k}.cross_attn", q["cross_attn"], _MSDEFORM)
+        _put_norm(sd, f"{k}.norm1", q["norm1"])
+        _put_all_linear(sd, k, q, ("linear1", "linear2"))
+        _put_norm(sd, f"{k}.norm3", q["norm3"])
+        i += 1
+    _put_mlp(sd, "transformer.decoder.ref_point_head", p["ref_point_head"])
+    _put_norm(sd, "transformer.decoder.norm", p["dec_norm"])
+    _put_mlp(sd, "bbox_embed.0", p["bbox_embed"])
+    return sd
+
+
+def _put_frozen_bn(sd: dict, key: str, p: dict):
+    sd[f"{key}.weight"] = _tensor(p["scale"])
+    sd[f"{key}.bias"] = _tensor(p["bias"])
+    sd[f"{key}.running_mean"] = _tensor(p["mean"])
+    sd[f"{key}.running_var"] = _tensor(p["var"])
+
+
+def deaot_state_dict_from_flax(params) -> dict:
+    """``vipe_tpu``'s ``DeAOTNet`` params (numpy leaves) → the port's state
+    dict, the reference's key layout (inverse of ``convert_deaot``)."""
+    p = params["params"] if "params" in params else params
+    sd: dict = {}
+    pe = p["encoder"]
+    _put(sd, "encoder.conv1", pe["conv1"])
+    _put_frozen_bn(sd, "encoder.bn1", pe["bn1"])
+    s = 1
+    while f"layer{s}_0" in pe:
+        b = 0
+        while f"layer{s}_{b}" in pe:
+            k, q = f"encoder.layer{s}.{b}", pe[f"layer{s}_{b}"]
+            for n in (1, 2, 3):
+                _put(sd, f"{k}.conv{n}", q[f"conv{n}"])
+                _put_frozen_bn(sd, f"{k}.bn{n}", q[f"bn{n}"])
+            if "downsample_conv" in q:
+                _put(sd, f"{k}.downsample.0", q["downsample_conv"])
+                _put_frozen_bn(sd, f"{k}.downsample.1", q["downsample_bn"])
+            b += 1
+        s += 1
+    _put(sd, "encoder_projector", p["encoder_projector"])
+
+    i = 0
+    while f"lstt_{i}" in p:
+        k, q = f"LSTT.layers.{i}", p[f"lstt_{i}"]
+        for name in ("norm1", "norm2", "id_norm2", "id_norm1"):
+            if name in q:
+                _put_norm(sd, f"{k}.{name}", q[name])
+        for name in ("linear_QV", "linear_U", "linear_ID_V", "linear_ID_U"):
+            if name in q:
+                _put_linear(sd, f"{k}.{name}", q[name])
+        for branch in ("long_term_attn", "short_term_attn", "self_attn"):
+            qb = q[branch]
+            _put(sd, f"{k}.{branch}.dw_conv.conv", qb["dw_conv"]["conv"])
+            _put_linear(sd, f"{k}.{branch}.projection", qb["projection"])
+            for name in ("linear_QK", "linear_V1", "linear_V2", "linear_U1", "linear_U2"):
+                if name in qb:
+                    _put_linear(sd, f"{k}.{branch}.{name}", qb[name])
+            if "relative_emb_k" in qb:
+                _put(sd, f"{k}.{branch}.relative_emb_k", qb["relative_emb_k"])
+        i += 1
+    _put_norm(sd, "LSTT.decoder_norms.0.gn", p["decoder_norm"])
+    _put(sd, "patch_wise_id_bank", p["patch_wise_id_bank"])
+    _put_norm(sd, "id_norm", p["id_norm"])
+    for name in ("in", "16x", "8x", "4x"):
+        _put(sd, f"decoder.conv_{name}.conv", p[f"dec_conv_{name}"])
+        _put_norm(sd, f"decoder.conv_{name}.gn", p[f"dec_gn_{name}"])
+    for name in ("adapter_16x", "adapter_8x", "adapter_4x", "conv_out"):
+        _put(sd, f"decoder.{name}", p[f"dec_{name}"])
     return sd

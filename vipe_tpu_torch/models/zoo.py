@@ -1,7 +1,9 @@
 """Local weight registry (port of ``vipe_tpu/models/zoo.py``, as far as the
 port's modules go): ``geocalib_pinhole|distorted``, ``unidepth_s|b|l``,
 ``dav2_vits|vitb|vitl``, ``vda_vits|vitl``, ``priorda`` (PriorDA's coarse
-DAv2) and ``priorda_fine`` (its conditioned DAv2).
+DAv2), ``priorda_fine`` (its conditioned DAv2) and TrackAnything's
+``sam_vit_b|vit_l|vit_h``, ``gdino`` (Swin-T and BERT-base) and ``deaot``
+(R50-DeAOT-L).
 
 Weights are read from ``$VIPE_WEIGHTS_DIR`` (default
 ``~/.cache/vipe_weights``), nothing is downloaded.  Per family the first of
@@ -30,7 +32,7 @@ import torch
 _EXTS = (".npz", ".pth", ".pt", ".ckpt", ".bin")
 FAMILIES = ("geocalib_pinhole", "geocalib_distorted", "unidepth_s", "unidepth_b", "unidepth_l",
             "dav2_vits", "dav2_vitb", "dav2_vitl", "vda_vits", "vda_vitl", "priorda",
-            "priorda_fine")
+            "priorda_fine", "sam_vit_b", "sam_vit_l", "sam_vit_h", "gdino", "deaot")
 
 
 def weights_dir() -> pathlib.Path:
@@ -78,7 +80,10 @@ def load_state_dict(family: str) -> Optional[dict]:
                      "geocalib": convert.geocalib_state_dict_from_flax,
                      "dav2": convert.dav2_state_dict_from_flax,
                      "priorda": convert.dav2_state_dict_from_flax,
-                     "vda": convert.vda_state_dict_from_flax}[family.split("_")[0]]
+                     "vda": convert.vda_state_dict_from_flax,
+                     "sam": convert.sam_state_dict_from_flax,
+                     "gdino": convert.gdino_state_dict_from_flax,
+                     "deaot": convert.deaot_state_dict_from_flax}[family.split("_")[0]]
         with np.load(path) as z:
             return from_flax(_unflatten({k: z[k] for k in z.files}))
     obj = torch.load(path, map_location="cpu", weights_only=True)

@@ -9,8 +9,10 @@
   default (``antialias=True``).  PyTorch's ``antialias=True`` bilinear
   computes the same weights; on an axis that grows, both are plain bilinear
   with border clamping.
+* ``resize_u8_linear``: ``cv2.resize``'s INTER_LINEAR on uint8 pixels, in
+  its fixed-point arithmetic.
 
-Both take NCHW tensors and interpolate in their dtype.
+They take NCHW tensors; the first two interpolate in their dtype.
 """
 
 from __future__ import annotations
@@ -55,3 +57,43 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     shrinks = out_hw[0] < x.shape[-2] or out_hw[1] < x.shape[-1]
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
                          antialias=shrinks)
+
+
+def _u8_linear_taps(n_in: int, n_out: int, clamp: bool, device):
+    """One axis of OpenCV's uint8 bilinear: the two source indices and their
+    11-bit fixed-point weights (positions in f32, weights rounded to
+    2048ths).  Along x a position off the border takes the edge pixel whole
+    (``clamp``); along y the weights stay and the rows are clamped."""
+    pos = ((torch.arange(n_out, dtype=torch.float64, device=device) + 0.5)
+           * (1.0 / (n_out / n_in)) - 0.5).float()
+    i0 = torch.floor(pos)
+    frac = pos - i0
+    i0 = i0.long()
+    if clamp:
+        out = (i0 < 0) | (i0 >= n_in - 1)
+        frac = torch.where(out, 0.0, frac)
+        i0 = i0.clamp(0, n_in - 1)
+    w0 = torch.round((1.0 - frac) * 2048.0).long()
+    return i0.clamp(0, n_in - 1), (i0 + 1).clamp(0, n_in - 1), w0, 2048 - w0
+
+
+def resize_u8_linear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(N, C, H, W) uint8 → f32 holding uint8 values at ``out_hw``, bit for
+    bit ``cv2.resize(..., INTER_LINEAR)`` on uint8: half-pixel centres, the
+    weights in 11-bit fixed point, a horizontal pass in integers, then
+    OpenCV's vertical rounding ((b0·(S0 >> 4)) >> 16 + (b1·(S1 >> 4)) >> 16
+    + 2) >> 2; a halving of both sides is OpenCV's 2×2 area mean."""
+    H, W = img.shape[-2:]
+    Ho, Wo = out_hw
+    a = img.long()
+    if (H, W) == (Ho, Wo):
+        return img.float()
+    if (H, W) == (2 * Ho, 2 * Wo):
+        s = a[..., 0::2, 0::2] + a[..., 1::2, 0::2] + a[..., 0::2, 1::2] + a[..., 1::2, 1::2]
+        return ((s + 2) >> 2).float()
+    x0, x1, cx0, cx1 = _u8_linear_taps(W, Wo, True, img.device)
+    y0, y1, cy0, cy1 = _u8_linear_taps(H, Ho, False, img.device)
+    rows = a[..., x0] * cx0 + a[..., x1] * cx1
+    cy0, cy1 = cy0[:, None], cy1[:, None]
+    out = ((cy0 * (rows[..., y0, :] >> 4)) >> 16) + ((cy1 * (rows[..., y1, :] >> 4)) >> 16)
+    return ((out + 2) >> 2).float()

@@ -1,6 +1,6 @@
 """Stream processors of the annotation pipeline (port of
-``vipe_tpu/pipeline/processors.py``: the FOV heuristic, GeoCalib and the
-post-SLAM adaptive depth)."""
+``vipe_tpu/pipeline/processors.py``: the FOV heuristic, GeoCalib,
+TrackAnything's instance masks and the post-SLAM adaptive depth)."""
 
 from __future__ import annotations
 
@@ -80,6 +80,43 @@ class GeoCalibIntrinsicsProcessor(StreamProcessor):
     def __call__(self, frame_idx: int, frame: VideoFrame) -> VideoFrame:
         if self._intr is not None:
             frame.intrinsics = np.asarray(self._intr, np.float32)
+        return frame
+
+
+class TrackAnythingProcessor(StreamProcessor):
+    """Open-vocabulary instance masks: each frame gets ``instance`` (ids, 0
+    the static scene), ``instance_phrases`` ({id: phrase}) and ``mask``,
+    the pixels SLAM may use: neither an instance nor next to one (eroded by
+    ``mask_expand``), sky counting as valid.  The engine is stateful (SAM's
+    embedding, DeAOT's memory, the id counters): one per thread and device
+    is cached for the process and reset for each video."""
+
+    def __init__(self, phrases: List[str], mask_expand: int = 5, device=None, **kwargs):
+        from ..models.model_cache import cached_thread
+        from ..priors.track_anything import TrackAnythingPipeline
+        from ..utils.device import resolve_device
+
+        device = resolve_device(device)
+        key = ("track_anything", TrackAnythingPipeline, tuple(phrases),
+               tuple(sorted(kwargs.items())), str(device))
+        self.pipeline = cached_thread(
+            key, lambda: TrackAnythingPipeline(phrases, device=device, **kwargs))
+        self.pipeline.reset()
+        self.mask_expand = mask_expand
+
+    def update_attributes(self, previous):
+        return set(previous) | {FrameAttribute.INSTANCE, FrameAttribute.MASK}
+
+    def __call__(self, frame_idx: int, frame: VideoFrame) -> VideoFrame:
+        from ..ops.morph import erode
+
+        with profiling.stage("track_anything"):
+            instance, phrases_map = self.pipeline.track(frame_idx, frame.rgb)
+            frame.instance = instance
+            frame.instance_phrases = phrases_map
+            with profiling.stage("ta_host_mask"):
+                frame.mask = np.asarray(erode((instance == 0) | frame.sky_mask,
+                                              self.mask_expand))
         return frame
 
 

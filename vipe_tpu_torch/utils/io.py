@@ -9,6 +9,7 @@ Layout under an output root, per video ``<name>``:
   depth/<name>.zip              per-frame float16 EXR "Z" entries "%05d.exr"
   mask/<name>.zip               per-frame PNG instance masks + mask/<name>.txt
   vipe/<name>_info.pkl          misc info (ba_residual, …)
+  vipe/<name>_vis.mp4           the visualization video (output.save_viz)
 
 OpenCV is imported only by the rgb-video and mask-PNG writers/readers.
 """
@@ -65,6 +66,10 @@ class ArtifactPath:
     @property
     def info_path(self):
         return self.root / "vipe" / f"{self.name}_info.pkl"
+
+    @property
+    def vis_path(self):
+        return self.root / "vipe" / f"{self.name}_vis.mp4"
 
     def exists(self) -> bool:
         return self.pose_path.exists()
