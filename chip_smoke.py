@@ -72,10 +72,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    track_anything`` and full.yaml's ten phrases, the card's nets in the
    model cache, and records boxes kept per detection, instances per frame,
    DeAOT's slots and the stage's host seconds and peaks;
+   Metric3D v2 (seeded random weights, IEEE f32): holds Metric3D-small
+   and -large on the card to the CPU at the canonical 616×1064 (depth,
+   normals, confidence) and times both against their f32 FLOP bounds;
+   drives the 720p video twice with ``slam.keyframe_depth:
+   metric3d-large`` (the prior's calls, its stage's host seconds and peak,
+   every prior finite and positive, their bits), then the depth stage's
+   processor on its metric branch (``adaptive_metric3d-large_svda``) on
+   that run's SLAM output; drives it twice with ``slam.sparse_tracks``
+   (``ShiftTracker``: a keypoint grid moved by the stream's known shift)
+   and ``slam.visualize`` (the BA's track rows, the snapshot read back),
+   and once with ``slam.infill_dense_disp`` in ``corr_mode: alt`` (one
+   finite disparity map per frame);
    holds the two volume runs, the two MEI runs, the two UniDepth runs, the
-   two depth runs and the two TrackAnything runs to each other: equal
-   keyframes, removals and K1 launches, bit-equal trajectories and
-   intrinsics (and depths, and instance maps);
+   two depth runs, the two TrackAnything runs, the two Metric3D runs and
+   the two sparse-tracks runs to each other: equal keyframes, removals and
+   K1 launches, bit-equal trajectories and intrinsics (and depths,
+   instance maps, keyframe priors, track rows);
 11. GeoCalib: fits the LM on the card to exact up and latitude fields at
    320×544 (pinhole over three frames, simple_mei with k1) and holds it to
    ground truth; holds ``GeoCalibNet`` (seeded weights) on the card to
@@ -89,8 +102,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    versions on a 720p rig edge set with cross-view edges (the main path
    proposes none), in volume/bf16, volume/int8 and alt;
 13. prints the ``kernels`` JSON line (K1's launches on the GeoCalib, the
-    UniDepth, the depth and the TrackAnything paths too) and, last, the
-    ``ok`` JSON line.
+    UniDepth, the depth, the TrackAnything, the Metric3D, the
+    sparse-tracks and the infill paths too, K2's on the infill path) and,
+    last, the ``ok`` JSON line.
 
 Kernel times come from CUDA events: the mean of back-to-back launches
 (warm L2) as ``ms``, and the median of launches each preceded by a 128 MB
@@ -105,6 +119,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import hashlib
 import json
 import pathlib
@@ -2054,13 +2069,317 @@ def track_anything_phases(thresh, main_paths, captured):
     model_cache.clear()
 
 
+# ------------------------------------------------------------------ Metric3D
+
+METRIC3D_NET_RTOL = 1e-3  # card against CPU, both IEEE f32, relative to the largest value
+METRIC3D_PRIOR = "metric3d-large"  # slam.keyframe_depth of the Metric3D main paths
+METRIC3D_ALIGN = "adaptive_metric3d-large_svda"  # the depth stage on its metric branch
+
+
+def metric3d_net_phase():
+    """Metric3D-small and -large at their published widths (DINOv2-reg
+    ViT-S/L, the RAFT decoder with 4 / 8 refinement steps), seeded random
+    weights, on a seeded normalised image at the canonical 616×1064: the
+    card against the CPU in IEEE f32 (depth, normals, confidence), then the
+    forward's time on the card by CUDA events, warm, against the operations
+    ``torch.utils.flop_counter`` counts at the f32 peak.  The card's large
+    model goes into the model cache, where the Metric3D main paths find
+    it."""
+    import torch
+
+    from vipe_tpu_torch.models import model_cache
+    from vipe_tpu_torch.priors.depth.metric3d import CANONICAL_SIZE, Metric3DModel
+    from vipe_tpu_torch.utils.device import true_f32
+
+    x = torch.randn((1, 3) + CANONICAL_SIZE, generator=torch.Generator().manual_seed(3))
+    out = {"size": list(CANONICAL_SIZE), "precision": "f32 convolutions and matmuls, TF32 off",
+           "tol": METRIC3D_NET_RTOL}
+    for variant in ("small", "large"):
+        model = Metric3DModel(variant, device="cuda")
+        with torch.no_grad(), true_f32():
+            ref = copy.deepcopy(model.net).cpu()(x)
+            xc = x.cuda()
+            got = model.net(xc)
+            errs = {k: _rel_err(r, g) for k, r, g in zip(("depth", "normals", "confidence"),
+                                                         ref, got)}
+            if not max(errs.values()) <= METRIC3D_NET_RTOL:
+                raise AssertionError(f"Metric3D-{variant} on the card against the CPU: {errs} "
+                                     f"(limit {METRIC3D_NET_RTOL})")
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                raise AssertionError(f"Metric3D-{variant}: outputs not finite")
+            timing = _net_timing(lambda: model.net(xc), F32_FLOPS_PER_S)
+        out[variant] = {"rel_err": errs, "depth_range": [float(got[0].min()),
+                                                          float(got[0].max())],
+                        "params": sum(p.numel() for p in model.net.parameters()), **timing}
+        del ref, got
+        if variant == "large":
+            model_cache.cached_global(("depth_model", Metric3DModel, METRIC3D_PRIOR, "cuda"),
+                                      lambda: model)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def metric3d_spy():
+    """While active, counts the calls of Metric3D's ``estimate`` and keeps
+    the SLAM buffers that a depth prior fills; yields the dict."""
+    from vipe_tpu_torch.priors.depth.metric3d import Metric3DModel
+    from vipe_tpu_torch.slam.buffer import GraphBuffer
+
+    orig_est, orig_update = Metric3DModel.estimate, GraphBuffer.update_disps_sens
+    seen = {"calls": 0, "buffers": []}
+
+    def estimate(self, *args, **kwargs):
+        seen["calls"] += 1
+        return orig_est(self, *args, **kwargs)
+
+    def update(self, depth_model, frame_idx=None):
+        if not any(b is self for b in seen["buffers"]):
+            seen["buffers"].append(self)
+        return orig_update(self, depth_model, frame_idx)
+
+    Metric3DModel.estimate, GraphBuffer.update_disps_sens = estimate, update
+    try:
+        yield seen
+    finally:
+        Metric3DModel.estimate, GraphBuffer.update_disps_sens = orig_est, orig_update
+
+
+def metric3d_main_path_phase(label, thresh, keep=None):
+    """``slam.keyframe_depth: metric3d-large`` (volume) on the seeded
+    32-frame 720p stream: the prior runs on every keyframe (f32, the
+    616×1064 canvas) and is rescaled by the focal ratio when the backend
+    changes the focal.  Every keyframe's disparity prior must be finite and
+    positive; records the prior's calls, the stage's host seconds and peak
+    and the priors' bits."""
+    import torch
+
+    with metric3d_spy() as seen:
+        rec, captured = main_path_phase(label, {"keyframe_depth": METRIC3D_PRIOR}, MAIN_FRAMES,
+                                        thresh, ["corr_lookup"], keep=keep)
+    if len(seen["buffers"]) != 1:
+        raise AssertionError(f"{label}: the prior filled {len(seen['buffers'])} buffers")
+    buf = seen["buffers"][0]
+    sens = buf.disps_sens[:buf.n_frames]
+    # once per appended keyframe (removed ones too), never again: the
+    # backend's focal change rescales the priors
+    if buf.n_frames != rec["keyframes"] or seen["calls"] < buf.n_frames or not (
+            bool(torch.isfinite(sens).all()) and bool((sens > 0).all())):
+        raise AssertionError(f"{label}: {seen['calls']} prior calls for {buf.n_frames} slots "
+                             f"({rec['keyframes']} keyframes); priors finite and positive?")
+    stage = rec["stages_host_s"]["keyframe_depth"]
+    rec["keyframe_depth"] = {
+        "model": METRIC3D_PRIOR, "prior_calls": seen["calls"], "stage_calls": stage["n"],
+        "host_s": stage["s"], "peak_mem_gib": rec["stage_peak_mem_gib"]["keyframe_depth"],
+        "prior_min": float(sens.min()), "prior_max": float(sens.max()),
+        "prior_sha1": hashlib.sha1(sens.cpu().numpy().tobytes()).hexdigest()}
+    del buf, sens, seen
+    return rec, captured
+
+
+def metric3d_depth_branch_phase(keep):
+    """``AdaptiveDepthProcessor`` with ``adaptive_metric3d-large_svda``
+    called on the first Metric3D main path's SLAM output and the seeded
+    stream's frames (the SLAM intrinsics on each), the coverage threshold
+    above any score so that the metric branch runs: Metric3D-large per
+    frame, VDA-S aligned to it.  Every frame's depth must be finite and
+    positive; records host seconds and peaks per stage."""
+    import gc
+
+    import torch
+
+    from vipe_tpu_torch.pipeline.processors import AdaptiveDepthProcessor
+    from vipe_tpu_torch.utils import profiling
+
+    slam_out = keep["output"].payload["slam_output"]
+    frames = []
+    for f in synth_stream(MAIN_FRAMES):
+        f.intrinsics = np.asarray(slam_out.intrinsics, np.float32)
+        frames.append(f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profiling.snapshot(reset=True)
+    torch.cuda.reset_peak_memory_stats()
+    with stage_peaks() as (peaks, top), metric3d_spy() as seen:
+        proc = AdaptiveDepthProcessor(METRIC3D_ALIGN, slam_output=slam_out, coverage_thresh=2.0,
+                                      device="cuda")
+        t0 = time.perf_counter()
+        depths = [f.metric_depth for f in proc.update_iterator(iter(frames))]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not proc.use_metric or seen["calls"] != MAIN_FRAMES:
+        raise AssertionError(f"the metric branch did not run Metric3D on every frame "
+                             f"(metric {proc.use_metric}, {seen['calls']} calls)")
+    return {"model": METRIC3D_ALIGN, "branch": "metric", "coverage": proc.coverage,
+            "coverage_thresh": 2.0, "metric3d_calls": seen["calls"], "frames": MAIN_FRAMES,
+            "resolution": [MAIN_H, MAIN_W], "wall_s": wall, "fps": MAIN_FRAMES / wall,
+            "peak_mem_gib": max(top[0], torch.cuda.max_memory_allocated()) / 2 ** 30,
+            "stage_peak_mem_gib": peaks, "stages_host_s": profiling.snapshot(reset=True),
+            "depth": _depths_record(depths, MAIN_FRAMES, "metric3d metric branch")}
+
+
+# --------------------------------------------------- the last SLAM options
+
+
+class ShiftTracker:
+    """Sparse tracks for the seeded stream (``slam.sparse_tracks: {name:
+    instance, instance: chip_smoke.ShiftTracker}``): a fixed grid of points
+    on the stream's canvas, observed wherever the stream's known shift puts
+    them in the frame, (5, 3) px a frame on the raw 720p frame, mapped
+    through the SLAM resize and crop; points outside the frame are not
+    observed, so tracks vanish and reappear as the crop wraps.  OpenCV's
+    LK tracker, the built-in one, is held against the JAX package on the
+    CPU; the card's machine need not have OpenCV."""
+
+    enabled = True
+
+    def __init__(self, n_views: int = 1):
+        from vipe_tpu_torch.slam.sparse_tracks import SparseTracks
+
+        self._tracks = SparseTracks(n_views)
+        self.n_views = n_views
+        gx, gy = np.meshgrid(np.linspace(20, MAIN_W + 44, 24), np.linspace(20, MAIN_H + 44, 14))
+        self.points = np.stack([gx.ravel(), gy.ravel()], -1)
+
+    def __getattr__(self, name):
+        # the queries and the splat of the port's SparseTracks
+        if name == "_tracks":
+            raise AttributeError(name)
+        return getattr(self._tracks, name)
+
+    def track_image(self, frame_idx, frames):
+        from vipe_tpu_torch.slam.system import StandardResizeStreamProcessor
+
+        proc = StandardResizeStreamProcessor()
+        (h1, w1), (top, _, left, _) = proc._compute((MAIN_H, MAIN_W))
+        h, w = frames[0].rgb.shape[:2]
+        raw = self.points - [(frame_idx * 5) % 64, (frame_idx * 3) % 64]
+        uv = np.stack([(raw[:, 0] + 0.5) * w1 / MAIN_W - 0.5 - left,
+                       (raw[:, 1] + 0.5) * h1 / MAIN_H - 0.5 - top], -1)
+        inside = (uv[:, 0] >= 0) & (uv[:, 0] < w) & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+        for v in range(self.n_views):
+            for kp in np.flatnonzero(inside):
+                self._tracks.add_observation(v, int(kp), frame_idx, uv[kp])
+
+
+@contextlib.contextmanager
+def options_spy():
+    """While active, counts the BA's track rows that carry a weight (edge
+    rows splatted with at least one keypoint) and keeps the inner filler's
+    results; yields the dict."""
+    from vipe_tpu_torch.slam import system
+    from vipe_tpu_torch.slam.sparse_tracks import SparseTracks
+
+    orig_splat, orig_result = (SparseTracks.compute_dense_disp_target_weight,
+                               system.InnerFiller.get_result)
+    seen = {"splat_calls": 0, "track_rows": 0, "filled": []}
+
+    def splat(self, *args, **kwargs):
+        target, weight = orig_splat(self, *args, **kwargs)
+        seen["splat_calls"] += 1
+        seen["track_rows"] += int((weight.reshape(len(weight), -1) > 0).any(1).sum())
+        return target, weight
+
+    def get_result(self):
+        seen["filled"].append(orig_result(self))
+        return seen["filled"][-1]
+
+    SparseTracks.compute_dense_disp_target_weight = splat
+    system.InnerFiller.get_result = get_result
+    try:
+        yield seen
+    finally:
+        SparseTracks.compute_dense_disp_target_weight = orig_splat
+        system.InnerFiller.get_result = orig_result
+
+
+def sparse_tracks_main_path_phase(label, thresh):
+    """``slam.sparse_tracks`` (``ShiftTracker``) with ``slam.visualize:
+    true`` (a snapshot every 4 keyframes, in a temporary directory) on the
+    seeded 32-frame 720p stream, volume: the tracks join the motion
+    filter's decision and the BA as a second flow term.  The BA must take
+    track rows, and the snapshot must read back with the run's keyframes;
+    records both."""
+    import shutil
+    import tempfile
+
+    from vipe_tpu_torch.utils.telemetry import read_snapshot
+
+    tmp = tempfile.mkdtemp(prefix="vipe_telemetry_")
+    try:
+        cfg = {"sparse_tracks": {"name": "instance", "instance": "chip_smoke.ShiftTracker"},
+               "visualize": True, "visualize_path": tmp, "visualize_every": 4}
+        with options_spy() as seen:
+            rec, captured = main_path_phase(label, cfg, MAIN_FRAMES, thresh, ["corr_lookup"])
+        snaps = sorted(p.name for p in pathlib.Path(tmp).iterdir())
+        snap = read_snapshot(pathlib.Path(tmp) / snaps[0]) if snaps else {}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if seen["track_rows"] <= 0:
+        raise AssertionError(f"{label}: the BA took no track rows ({seen['splat_calls']} splats)")
+    if snaps != ["synth0_live.npz"] or int(snap["n_keyframes"]) != rec["keyframes"] or not (
+            np.isfinite(snap["poses_w2c"]).all() and np.isfinite(snap["cloud_xyz"]).all()):
+        raise AssertionError(f"{label}: snapshots {snaps}, "
+                             f"{snap.get('n_keyframes')} keyframes in the last")
+    rec["sparse_tracks"] = {"splat_calls": seen["splat_calls"], "track_rows": seen["track_rows"]}
+    rec["snapshot"] = {"files": snaps, "n_keyframes": int(snap["n_keyframes"]),
+                       "cloud_points": int(len(snap["cloud_xyz"]))}
+    cfg["visualize_path"] = "<tmp>"
+    rec["slam"] = cfg
+    return rec, captured
+
+
+def infill_alt_main_path_phase(label, thresh):
+    """``slam.infill_dense_disp: true`` with ``corr_mode: alt`` on the seeded
+    32-frame 720p stream: the filler solves every frame's disparities
+    (volumes, as the JAX package's loop path builds them) beside the poses;
+    K2 carries the frontend and backend.  Every frame must get a finite
+    disparity map."""
+    with options_spy() as seen:
+        rec, captured = main_path_phase(label, {"infill_dense_disp": True, "corr_mode": "alt"},
+                                        MAIN_FRAMES, thresh, ["corr_lookup", "corr_fused"])
+    disps = seen["filled"][0].dense_disps if len(seen["filled"]) == 1 else None
+    if disps is None or len(disps) != MAIN_FRAMES or not np.isfinite(disps).all():
+        raise AssertionError(f"{label}: the filler's disparities "
+                             f"{None if disps is None else disps.shape} are not one finite map "
+                             "per frame")
+    rec["dense_disps"] = {"shape": list(disps.shape), "min": float(disps.min()),
+                          "max": float(disps.max())}
+    return rec, captured
+
+
+def slice11_phases(thresh, main_paths, captured):
+    """Metric3D's nets, its keyframe-prior main path twice, the depth
+    stage on its metric branch, the sparse-tracks path twice, the infill
+    path once."""
+    from vipe_tpu_torch.models import model_cache
+
+    print(json.dumps({"metric3d_net": metric3d_net_phase()}), flush=True)
+    keep = {}
+    for label in ("metric3d", "metric3d_again"):
+        main_paths[label], captured[label] = metric3d_main_path_phase(
+            label, thresh, keep if label == "metric3d" else None)
+        print(json.dumps({"main_path": main_paths[label]}), flush=True)
+    print(json.dumps({"metric3d_depth_branch": metric3d_depth_branch_phase(keep)}), flush=True)
+    del keep
+    model_cache.clear()
+    for label in ("sparse_tracks", "sparse_tracks_again"):
+        main_paths[label], captured[label] = sparse_tracks_main_path_phase(label, thresh)
+        print(json.dumps({"main_path": main_paths[label]}), flush=True)
+    main_paths["infill_alt"], captured["infill_alt"] = infill_alt_main_path_phase("infill_alt",
+                                                                                  thresh)
+    print(json.dumps({"main_path": main_paths["infill_alt"]}), flush=True)
+
+
 def determinism_check(main_paths):
     """Two runs of one main path in one call must agree: keyframes,
     removals and K1 launches equal, intrinsics and trajectory bit-equal."""
     out = {}
     for a, b in (("volume", "volume_again"), ("mei_masks_depth", "mei_masks_depth_again"),
                  ("unidepth", "unidepth_again"), ("depth_align", "depth_align_again"),
-                 ("track_anything", "track_anything_again")):
+                 ("track_anything", "track_anything_again"), ("metric3d", "metric3d_again"),
+                 ("sparse_tracks", "sparse_tracks_again")):
         ra, rb = main_paths[a], main_paths[b]
         same = {k: ra[k] == rb[k] for k in ("keyframes", "n_removals", "late_removals",
                                              "intrinsics_hex", "trajectory_sha1")}
@@ -2072,6 +2391,11 @@ def determinism_check(main_paths):
         if "track_anything" in ra:
             same["instance_sha1"] = (ra["track_anything"]["instance_sha1"]
                                      == rb["track_anything"]["instance_sha1"])
+        if "keyframe_depth" in ra and "prior_sha1" in ra["keyframe_depth"]:
+            same["prior_sha1"] = (ra["keyframe_depth"]["prior_sha1"]
+                                  == rb["keyframe_depth"]["prior_sha1"])
+        if "sparse_tracks" in ra:
+            same["track_rows"] = ra["sparse_tracks"] == rb["sparse_tracks"]
         if not all(same.values()):
             raise AssertionError(f"runs {a} and {b} of one code differ: {same}")
         out[f"{a} / {b}"] = same
@@ -2166,6 +2490,8 @@ def main():
 
     model_cache.clear()
     track_anything_phases(thresh, main_paths, captured)
+    slice11_phases(thresh, main_paths, captured)
+    model_cache.clear()
 
     print(json.dumps({"determinism": determinism_check(main_paths)}), flush=True)
     print(json.dumps({"geocalib_lm": geocalib_lm_phase()}), flush=True)
@@ -2178,6 +2504,10 @@ def main():
     k1["unidepth_launches"] = main_paths["unidepth"]["launches"]["corr_lookup"]
     k1["depth_align_launches"] = main_paths["depth_align"]["launches"]["corr_lookup"]
     k1["track_anything_launches"] = main_paths["track_anything"]["launches"]["corr_lookup"]
+    k1["metric3d_launches"] = main_paths["metric3d"]["launches"]["corr_lookup"]
+    k1["sparse_tracks_launches"] = main_paths["sparse_tracks"]["launches"]["corr_lookup"]
+    k1["infill_alt_launches"] = main_paths["infill_alt"]["launches"]["corr_lookup"]
+    k2["infill_alt_launches"] = main_paths["infill_alt"]["launches"]["corr_fused"]
     k2["launches"] = main_paths["alt"]["launches"]["corr_fused"]
     k1["rig_launches"] = main_paths["rig_volume"]["launches"]["corr_lookup"]
     k2["rig_launches"] = main_paths["rig_alt"]["launches"]["corr_fused"]

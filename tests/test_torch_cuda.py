@@ -2,8 +2,9 @@
 
 Every test here needs a CUDA card and skips without one; the last ones
 hold the deterministic segment sum (plain PyTorch, no kernel of the port)
-to its bits on the card, and UniDepth-S (library calls, no kernel of the
-port) on the card to the CPU and its bf16 SLAM prior to its f32 one.  The file imports neither JAX nor ``vipe_tpu``, so it
+to its bits on the card, UniDepth-S (library calls, no kernel of the
+port) on the card to the CPU and its bf16 SLAM prior to its f32 one, and
+Metric3D-small's ``estimate`` on the card to the CPU.  The file imports neither JAX nor ``vipe_tpu``, so it
 also runs on a machine that has only PyTorch and the CUDA toolkit::
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -415,3 +416,23 @@ def test_unidepth_bf16_prior_matches_f32(cuda_device):
     ref = model.estimate_sens_device(img, row, dtype=torch.float32)
     assert got.shape == (30, 40) and bool(torch.isfinite(got).all()) and bool((got > 0).all())
     assert float((got - ref).abs().max() / ref.abs().max()) < 5e-2
+
+
+@pytest.mark.cuda
+def test_metric3d_estimate_card_matches_cpu(cuda_device):
+    """Metric3D-small (seeded, a 140×182 canvas, 2 refinement steps)
+    ``estimate`` on the card against the CPU, both in IEEE f32: the frame's
+    depth within 1e-3 of the largest value, from a frame given as a card
+    tensor (SLAM's buffer hands its images so) and as a host array."""
+    from vipe_tpu_torch.priors.depth.base import DepthEstimationInput
+    from vipe_tpu_torch.priors.depth.metric3d import Metric3DModel
+
+    kw = dict(input_size=(140, 182), iters=2)
+    cpu, card = Metric3DModel("small", device="cpu", **kw), Metric3DModel("small",
+                                                                         device=cuda_device, **kw)
+    rgb = torch.rand((96, 160, 3), generator=torch.Generator().manual_seed(3))
+    ref = cpu.estimate(DepthEstimationInput(rgb, 120.0)).depth
+    for given in (rgb.to(cuda_device), rgb.numpy()):
+        got = card.estimate(DepthEstimationInput(given, 120.0)).depth
+        assert got.device.type == "cuda" and got.shape == (96, 160)
+        assert float((got.cpu() - ref).abs().max() / ref.abs().max()) < 1e-3

@@ -769,8 +769,7 @@ def test_zoo_reads_depth_families(tmp_path, monkeypatch):
     for net, sd in ((model.net, plain), (model.fine_net, cond)):
         own = net.state_dict()
         assert all(np.array_equal(own[k].numpy(), v) for k, v in sd.items() if k in own)
-    with pytest.raises(NotImplementedError):
-        zoo.load_state_dict("metric3d_small")
+    assert zoo.load_state_dict("metric3d_small") is None  # a family, without a file here
 
 
 def test_factory_builds_depth_families_once_per_device():
@@ -785,10 +784,11 @@ def test_factory_builds_depth_families_once_per_device():
             m = make_depth_model(name, device="cpu")
             assert isinstance(m, cls) and make_depth_model(name, device="cpu") is m
             assert m.depth_type.name == "AFFINE_DISP" and m.device == torch.device("cpu")
+        m = make_depth_model("metric3d-small", device="cpu")
+        assert m.depth_type.name == "METRIC_DEPTH" and make_depth_model(
+            "metric3d-small", device="cpu") is m
     finally:
         model_cache.clear()
-    with pytest.raises(NotImplementedError):
-        make_depth_model("metric3d-small", device="cpu")
 
 
 def test_dav2_estimate_is_resized_net_output():

@@ -338,8 +338,9 @@ def test_zoo_reads_pth_and_flax_npz(weights, tmp_path, monkeypatch):
     sd, variables, _ = weights
     monkeypatch.setenv("VIPE_WEIGHTS_DIR", str(tmp_path))
     assert zoo.load_state_dict("geocalib_pinhole") is None
+    assert zoo.load_state_dict("metric3d_small") is None
     with pytest.raises(NotImplementedError):
-        zoo.load_state_dict("metric3d_small")
+        zoo.load_state_dict("droidnet")
     torch.save({"model": {f"module.{k}": torch.from_numpy(v) for k, v in sd.items()}},
                tmp_path / "geocalib_distorted.pth")
     flat = {}

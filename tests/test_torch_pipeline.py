@@ -168,9 +168,9 @@ def test_port_imports_no_jax(port_run):
 
 def test_unported_pipeline_options_raise():
     """The options the port does not run are refused: a rig with
-    TrackAnything instances (before a frame is read), ``slam.sparse_tracks``
-    and ``slam.infill_dense_disp``; the post-SLAM depth and TrackAnything on
-    one view are not."""
+    TrackAnything instances (before a frame is read); ``slam.sparse_tracks``,
+    ``slam.infill_dense_disp``, the post-SLAM depth and TrackAnything on one
+    view are not."""
     from vipe_tpu_torch.pipeline.default import DefaultAnnotationPipeline
     from vipe_tpu_torch.slam.system import SLAMSystem
     from vipe_tpu_torch.streams.base import MultiviewVideoList, VideoStream
@@ -187,8 +187,9 @@ def test_unported_pipeline_options_raise():
     with pytest.raises(NotImplementedError, match="rig"):
         pipe.run(MultiviewVideoList("rig", [Unread(), Unread()], rig))
     for key, value in (("sparse_tracks", {"name": "lk"}), ("infill_dense_disp", True)):
-        with pytest.raises(NotImplementedError, match=key):
-            SLAMSystem(config={key: value}, device="cpu")
+        pipe = DefaultAnnotationPipeline(device="cpu", slam={key: value})
+        slam = SLAMSystem(config=pipe.slam_cfg, device="cpu", update_fn=lambda *a: None)
+        assert slam.config[key] == value
     DefaultAnnotationPipeline(device="cpu", post={"depth_align_model": "adaptive_unidepth-l_vda",
                                                   "overlap_vda": True},
                               init={"overlap": True})

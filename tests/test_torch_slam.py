@@ -174,13 +174,67 @@ def test_random_weight_droidnet_alt_run_is_finite():
     _check_finite_run(_random_weight_run(corr_mode="alt"))
 
 
+def _step_buffer(n):
+    """A buffer of ``n`` frames of seeded images and zero features, the
+    first two 0.1 apart in x, at the oracle scene's intrinsics."""
+    from vipe_tpu_torch.slam.buffer import GraphBuffer
+
+    rng = np.random.default_rng(5)
+    buf = GraphBuffer(height=H, width=W, buffer_size=8)
+    feat = torch.zeros((HT, WD, 128), dtype=torch.bfloat16)
+    for k in range(n):
+        img = torch.from_numpy((rng.random((H, W, 3)) * 255).astype(np.uint8))
+        buf.append_keyframe(k, img, feat, feat, feat,
+                            intrinsics=np.asarray([W * 1.2, W * 1.2, W / 2, H / 2], np.float32))
+    buf.poses[1, 0] = 0.1
+    return buf
+
+
 @pytest.mark.parametrize("key,value", [
-    ("visualize", True), ("infill_dense_disp", True), ("sparse_tracks", {"enabled": True}),
+    ("visualize", True), ("infill_dense_disp", True), ("sparse_tracks", {"name": "lk"}),
 ])
-def test_unported_options_raise(key, value):
-    with pytest.raises(NotImplementedError):
-        tsystem.SLAMSystem(config={key: value}, device="cpu",
-                           update_fn=lambda *a: None, encode_features=None, encode_context=None)
+def test_slam_options_build_and_step(key, value, tmp_path):
+    """``SLAMSystem`` takes each option, and the option's own step runs on a
+    small buffer: the telemetry snapshot, the filler's disparities, the LK
+    tracker.  The whole runs are held against the JAX package in
+    ``tests/test_torch_slam_tracks.py``."""
+    from vipe_tpu_torch.slam.inner_filler import InnerFiller
+    from vipe_tpu_torch.slam.sparse_tracks import LKSparseTracks, build_sparse_tracks
+    from vipe_tpu_torch.utils.telemetry import TelemetryWriter, read_snapshot
+
+    system = tsystem.SLAMSystem(config={key: value}, device="cpu", update_fn=lambda *a: None,
+                                encode_features=None, encode_context=None)
+    assert system.config[key] == value
+    if key == "visualize":
+        writer = TelemetryWriter(tmp_path, name="clip", every=2)
+        assert not writer.update(_step_buffer(1))
+        assert writer.update(_step_buffer(2))
+        snap = read_snapshot(tmp_path / "clip_live.npz")
+        assert set(snap) == {"n_keyframes", "tstamp", "poses_w2c", "cloud_xyz", "cloud_rgb",
+                             "wall_time"}
+        assert snap["n_keyframes"] == 2 and snap["cloud_xyz"].shape == (HT * WD, 3)
+    elif key == "infill_dense_disp":
+        buf = _step_buffer(3)
+
+        def still(net, inp, corr, motn, ii, jj, num_frames):
+            delta = torch.zeros(motn.shape[:-1] + (2,))
+            return net, delta, torch.ones_like(delta), torch.full((num_frames, HT, WD), 0.01)
+
+        filler = InnerFiller(buf, still, {key: value})
+        assert filler.needs_context
+        filler.set_start_idx(2)
+        filler.compute()
+        out = filler.get_result()
+        assert out.poses.shape == (1, 7) and out.dense_disps.shape == (1, HT, WD)
+        assert np.isfinite(out.dense_disps).all()
+    else:
+        tracks = build_sparse_tracks(value)
+        assert isinstance(tracks, LKSparseTracks) and tracks.enabled
+        rng = np.random.default_rng(6)
+        canvas = rng.random((H, W + 8, 3)).astype(np.float32)
+        for k in range(2):
+            tracks.track_image(k, [type("Frame", (), {"rgb": canvas[:, 2 * k:2 * k + W]})])
+        assert tracks.get_correspondences(0, 0, 1)
 
 
 def test_default_device_needs_cuda():

@@ -787,6 +787,48 @@ def test_rig_with_instance_raises():
         pipe.run(MultiviewVideoList("rig", [Unread(), Unread()], rig))
 
 
+@pytest.mark.parametrize("case", ["seeded_with_zeros", "constant"])
+def test_colorize_inv_depth_equals_matplotlib_turbo(case, monkeypatch):
+    """The depth pane bit for bit as the JAX package colours it through
+    matplotlib's turbo map, with matplotlib unimportable for the port's
+    call: seeded depths with holes (no depth: black), and a constant map
+    (every value at the stretch's floor)."""
+    import sys
+
+    from vipe_tpu.utils import visualization as jviz
+    from vipe_tpu_torch.utils import visualization as viz
+
+    rng = np.random.default_rng(8)
+    if case == "constant":
+        depth = np.full((H, W), 2.5, np.float32)
+    else:
+        depth = (0.5 + 4 * rng.random((H, W))).astype(np.float32)
+        depth[rng.random((H, W)) < 0.1] = 0.0
+    ref = jviz.colorize_inv_depth(depth)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    got = viz.colorize_inv_depth(depth)
+    assert got.dtype == ref.dtype == np.uint8 and np.array_equal(got, ref)
+
+
+def test_turbo_lookup_equals_matplotlib():
+    """The carried turbo table is matplotlib's, and its lookup matches
+    ``ListedColormap``'s at every bin edge, just below each, at 0 and 1.0,
+    outside [0, 1] and on NaN, in f32 and f64."""
+    import matplotlib
+    from matplotlib._cm_listed import _turbo_data
+
+    from vipe_tpu_torch.utils import visualization as viz
+
+    np.testing.assert_array_equal(viz._TURBO, np.asarray(_turbo_data))
+    edges = np.arange(257) / 256
+    x = np.concatenate([edges, np.nextafter(edges[1:], 0), [-0.5, 1.5, np.nan],
+                        np.random.default_rng(9).random(500)])
+    for dtype in (np.float32, np.float64):
+        xs = x.astype(dtype)
+        ref = (matplotlib.colormaps["turbo"](xs)[..., :3] * 255).astype(np.uint8)
+        assert np.array_equal(viz.turbo_u8(xs), ref), dtype
+
+
 def test_visualization_panes_match_jax():
     """The rgb, instance and depth panes of one frame equal the JAX
     package's."""

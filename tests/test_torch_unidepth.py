@@ -401,10 +401,13 @@ def test_factory_builds_unidepth_once_per_device():
         fresh = tud.UniDepthModel("s", device="cpu")
         for k, v in fresh.net.state_dict().items():
             assert torch.equal(v, m.net.state_dict()[k]), k
+        # the factory's other metric family builds beside it, METRIC_DEPTH
+        m3d = make_depth_model("metric3d-small", device="cpu")
+        assert m3d.depth_type.name == "METRIC_DEPTH" and m3d.device == torch.device("cpu")
     finally:
         model_cache.clear()
-    with pytest.raises(NotImplementedError):
-        make_depth_model("metric3d-small", device="cpu")
+    with pytest.raises(ValueError, match="family"):
+        make_depth_model("midas-l", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_depth_model("unidepth-l")
@@ -441,10 +444,12 @@ def test_unidepth_config_is_the_jax_one():
 
 
 def test_rig_with_keyframe_depth_raises():
-    """A rig with a keyframe depth prior stays refused: the JAX reference
-    indexes a rig's (frame, view) slots by frame there (ROADMAP.md,
-    queue 3), so it cannot hold a port of that path to account."""
+    """A rig with a keyframe depth prior stays refused, the constant and the
+    Metric3D one alike: the JAX reference indexes a rig's (frame, view)
+    slots by frame there (ROADMAP.md, queue 3), so it cannot hold a port of
+    that path to account."""
     from vipe_tpu_torch.priors.depth.base import ConstantDepthModel
+    from vipe_tpu_torch.priors.depth.metric3d import Metric3DModel
     from vipe_tpu_torch.slam.system import SLAMSystem
     from vipe_tpu_torch.streams.base import MultiviewVideoList, VideoStream
 
@@ -453,9 +458,11 @@ def test_rig_with_keyframe_depth_raises():
             return 0
 
     rig = np.tile(np.asarray([0, 0, 0, 0, 0, 0, 1], np.float32), (2, 1))
-    slam = SLAMSystem(config={}, device="cpu", metric_depth=ConstantDepthModel(2.0))
-    with pytest.raises(NotImplementedError, match="rig"):
-        slam.run(MultiviewVideoList("rig", [Empty(), Empty()], rig))
+    for prior in (ConstantDepthModel(2.0), Metric3DModel("small", device="cpu")):
+        slam = SLAMSystem(config={}, device="cpu", metric_depth=prior,
+                          update_fn=lambda *a: None)
+        with pytest.raises(NotImplementedError, match="rig"):
+            slam.run(MultiviewVideoList("rig", [Empty(), Empty()], rig))
 
 
 # --------------------------- the ViT and the net (JAX in the background)

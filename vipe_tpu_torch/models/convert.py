@@ -1,12 +1,14 @@
 """Flax → PyTorch weight conversion for DroidNet, GeoCalib, UniDepth, Depth
-Anything v2, Video Depth Anything, SAM, GroundingDINO and DeAOT.
+Anything v2, Video Depth Anything, Metric3D v2, SAM, GroundingDINO and
+DeAOT.
 
 ``droidnet_state_dict_from_flax``, ``geocalib_state_dict_from_flax``,
 ``unidepth_state_dict_from_flax``, ``dav2_state_dict_from_flax``,
-``vda_state_dict_from_flax`` and ``sam_state_dict_from_flax`` are the
-inverses of ``vipe_tpu.models.convert.convert_droidnet``,
-``convert_geocalib``, ``convert_unidepth``, ``convert_dav2``,
-``convert_vda`` and ``convert_sam``; ``gdino_state_dict_from_flax`` and
+``vda_state_dict_from_flax``, ``metric3d_state_dict_from_flax`` and
+``sam_state_dict_from_flax`` are the inverses of
+``vipe_tpu.models.convert.convert_droidnet``, ``convert_geocalib``,
+``convert_unidepth``, ``convert_dav2``, ``convert_vda``,
+``convert_metric3d`` and ``convert_sam``; ``gdino_state_dict_from_flax`` and
 ``deaot_state_dict_from_flax`` those of the track_anything packages'
 ``convert_gdino`` and ``convert_deaot``.  They turn the
 JAX package's param trees (given as numpy arrays) into this port's state
@@ -311,6 +313,54 @@ def vda_state_dict_from_flax(params) -> dict:
     _dpt_head_from_flax(sd, "head", p)
     for m in range(4):
         _motion_from_flax(sd, f"head.motion_modules.{m}", p[f"motion{m}"])
+    return sd
+
+
+def metric3d_state_dict_from_flax(params) -> dict:
+    """``{"vit", "decoder"}`` of ``vipe_tpu``'s ``Metric3DNet`` (numpy
+    leaves) → the port's ``Metric3DNet`` state dict, ViPE's layout
+    (inverse of ``convert_metric3d``)."""
+    sd = vit_state_dict_from_flax(params["vit"], "depth_model.encoder")
+    p = params["decoder"]["params"]
+    d = "depth_model.decoder"
+    for i in range(4):
+        r, pr = f"{d}.token2feature.read_{i}", p[f"read_{i}"]
+        _put_linear(sd, f"{r}.readoper.project_patch", pr["readoper"]["project_patch"])
+        _put_linear(sd, f"{r}.readoper.project_learn", pr["readoper"]["project_learn"])
+    _put_conv_transpose(sd, f"{d}.token2feature.read_1.sample", p["read_1"]["sample"])
+    _put(sd, f"{d}.token2feature.read_0.sample.0", p["read_0"]["sample"])
+    for name in ("upconv_3", "upconv_2", "upconv_1"):
+        u, pu = f"{d}.decoder_mono.{name}", p[name]
+        for way in ("way_trunk", "way_branch"):
+            if way in pu:
+                _put(sd, f"{u}.{way}.conv1", pu[way]["conv1"])
+                _put(sd, f"{u}.{way}.conv2", pu[way]["conv2"])
+        _put(sd, f"{u}.out_conv", pu["out_conv"])
+    for k in (0, 2):
+        _put(sd, f"{d}.depth_regressor.{k}", p[f"depth_regressor_{k}"])
+    for k in (0, 2, 4, 6):
+        _put(sd, f"{d}.normal_predictor.{k}", p[f"normal_predictor_{k}"])
+    for lvl, tag in enumerate(("04", "08", "16")):
+        for j in (0, 1):
+            c, pc = f"{d}.context_feature_encoder.outputs{tag}.{j}", p[f"outputs{tag}_{j}"]
+            res = pc["res"]
+            for name in ("conv1", "conv2"):
+                _put(sd, f"{c}.0.{name}", res[name])
+            for name in ("norm1", "norm2"):
+                _put_norm(sd, f"{c}.0.{name}", res[name])
+            if "downsample" in res:
+                _put(sd, f"{c}.0.downsample.0", res["downsample"])
+                _put_norm(sd, f"{c}.0.norm3", res["norm3"])
+            _put(sd, f"{c}.1", pc["conv"])
+        _put(sd, f"{d}.context_zqr_convs.{lvl}", p[f"context_zqr_convs_{lvl}"])
+    ub, pub = f"{d}.update_block", p["update_block"]
+    for g in ("gru08", "gru16", "gru32"):
+        for name in ("convz", "convr", "convq"):
+            _put(sd, f"{ub}.{g}.{name}", pub[g][name])
+    for name in ("conv1d", "conv2d", "conv1n", "conv2n"):
+        _put(sd, f"{ub}.flow_head.{name}", pub["flow_head"][name])
+    _put(sd, f"{ub}.mask.0", pub["mask0"])
+    _put(sd, f"{ub}.mask.2", pub["mask2"])
     return sd
 
 

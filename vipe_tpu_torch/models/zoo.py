@@ -1,7 +1,8 @@
 """Local weight registry (port of ``vipe_tpu/models/zoo.py``, as far as the
 port's modules go): ``geocalib_pinhole|distorted``, ``unidepth_s|b|l``,
-``dav2_vits|vitb|vitl``, ``vda_vits|vitl``, ``priorda`` (PriorDA's coarse
-DAv2), ``priorda_fine`` (its conditioned DAv2) and TrackAnything's
+``dav2_vits|vitb|vitl``, ``vda_vits|vitl``, ``metric3d_small|large``,
+``priorda`` (PriorDA's coarse DAv2), ``priorda_fine`` (its conditioned
+DAv2) and TrackAnything's
 ``sam_vit_b|vit_l|vit_h``, ``gdino`` (Swin-T and BERT-base) and ``deaot``
 (R50-DeAOT-L).
 
@@ -16,8 +17,7 @@ these files found is used:
 
 No file → ``load_state_dict`` returns None and the model is random-initialised
 from a seed (``load_net``); ``has_weights`` says whether a family has a
-file.  A family that the port has no module for raises
-``NotImplementedError``.
+file.  A name outside these families raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ import torch
 
 _EXTS = (".npz", ".pth", ".pt", ".ckpt", ".bin")
 FAMILIES = ("geocalib_pinhole", "geocalib_distorted", "unidepth_s", "unidepth_b", "unidepth_l",
-            "dav2_vits", "dav2_vitb", "dav2_vitl", "vda_vits", "vda_vitl", "priorda",
-            "priorda_fine", "sam_vit_b", "sam_vit_l", "sam_vit_h", "gdino", "deaot")
+            "dav2_vits", "dav2_vitb", "dav2_vitl", "vda_vits", "vda_vitl", "metric3d_small",
+            "metric3d_large", "priorda", "priorda_fine", "sam_vit_b", "sam_vit_l", "sam_vit_h",
+            "gdino", "deaot")
 
 
 def weights_dir() -> pathlib.Path:
@@ -81,6 +82,7 @@ def load_state_dict(family: str) -> Optional[dict]:
                      "dav2": convert.dav2_state_dict_from_flax,
                      "priorda": convert.dav2_state_dict_from_flax,
                      "vda": convert.vda_state_dict_from_flax,
+                     "metric3d": convert.metric3d_state_dict_from_flax,
                      "sam": convert.sam_state_dict_from_flax,
                      "gdino": convert.gdino_state_dict_from_flax,
                      "deaot": convert.deaot_state_dict_from_flax}[family.split("_")[0]]

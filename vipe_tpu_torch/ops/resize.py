@@ -11,6 +11,9 @@
   with border clamping.
 * ``resize_u8_linear``: ``cv2.resize``'s INTER_LINEAR on uint8 pixels, in
   its fixed-point arithmetic.
+* ``resize_nearest``: ``jax.image.resize(..., "nearest")``, output index
+  ``o`` taking input ``floor((o + 0.5)·n_in/n_out)`` (torch's
+  ``nearest-exact`` rule, not its ``nearest``).
 
 They take NCHW tensors; the first two interpolate in their dtype.
 """
@@ -97,3 +100,20 @@ def resize_u8_linear(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor
     cy0, cy1 = cy0[:, None], cy1[:, None]
     out = ((cy0 * (rows[..., y0, :] >> 4)) >> 16) + ((cy1 * (rows[..., y1, :] >> 4)) >> 16)
     return ((out + 2) >> 2).float()
+
+
+def _nearest_idx(n_in: int, n_out: int, device) -> torch.Tensor:
+    # in f32 and in this order, as jax.image.resize computes its offsets
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * n_in / n_out
+    return pos.floor().long().clamp(max=n_in - 1)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """(N, C, H, W) → (N, C, *out_hw) as ``jax.image.resize(...,
+    "nearest")``: half-pixel centres, each output pixel a copy of one
+    input pixel."""
+    H, W = x.shape[-2:]
+    if (H, W) == tuple(out_hw):
+        return x
+    return x[..., _nearest_idx(H, out_hw[0], x.device)[:, None],
+             _nearest_idx(W, out_hw[1], x.device)]

@@ -2,11 +2,10 @@
 
 Names follow ``"<family>-<variant>"``: ``constant-<depth>``,
 ``unidepth-<s|b|l>``, ``dav2-<vits|vitb|vitl>``,
-``vda-<vits|vitl>`` (or ``videodepthanything-…``) and
-``priorda[-<vits|vitb|vitl>]``; ``metric3d`` raises
-``NotImplementedError`` until the slice that ports it.  A learned model is
-built once per process and device (``models/model_cache.py``): a fresh
-pipeline per video does not load a ViT-L again.
+``vda-<vits|vitl>`` (or ``videodepthanything-…``),
+``metric3d-<small|large>`` and ``priorda[-<vits|vitb|vitl>]``.  A learned
+model is built once per process and device (``models/model_cache.py``): a
+fresh pipeline per video does not load a ViT-L again.
 """
 
 from __future__ import annotations
@@ -27,6 +26,10 @@ def _learned(family: str):
         from .videodepthanything import VideoDepthAnythingModel
 
         return VideoDepthAnythingModel, "vitl"
+    if family == "metric3d":
+        from .metric3d import Metric3DModel
+
+        return Metric3DModel, "small"
     if family == "priorda":
         from .priorda import PriorDAModel
 
@@ -47,8 +50,4 @@ def make_depth_model(name: str, device=None) -> DepthEstimationModel:
         dev = resolve_device(device)
         return cached_global(("depth_model", cls, name, str(dev)),
                              lambda: cls(variant or default, device=dev))
-    if family == "metric3d":
-        raise NotImplementedError(
-            f"depth model {name!r}: the metric3d prior is not ported yet "
-            "(ROADMAP.md, queue 1: the priors slice)")
     raise ValueError(f"Unknown depth model family: {family!r} (from {name!r})")

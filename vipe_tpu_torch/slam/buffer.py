@@ -74,6 +74,8 @@ class GraphBuffer:
         self.inps = torch.zeros((B, ht, wd, 128), dtype=feat_dtype, device=dev)
         # intrinsics the keyframe depth prior last ran with
         self.last_depth_intrinsics = None
+        # the keypoint tracks whose flow joins the BA (slam/sparse_tracks.py)
+        self.sparse_tracks = None
 
     # ------------------------------------------------------------------ state
 

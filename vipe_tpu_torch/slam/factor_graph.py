@@ -43,6 +43,7 @@ CORR_RADIUS = 3
 BACKEND_CHUNK = 32  # edges per backend corr chunk (soft cap, frame-aligned)
 ADD_CHUNK = 16      # edges per corr-state build (bounds transient memory)
 WEIGHT_DENSE_DISP = 0.001  # flow-term weight of the BA (reference buffer.py:396)
+WEIGHT_TRACKS = 0.001      # the sparse tracks' flow term's weight
 
 
 class FactorGraph:
@@ -475,9 +476,25 @@ class FactorGraph:
         target = torch.cat([self.target_inac[sel_t], self.target]).reshape(E, P, 2)
         weight = torch.cat([self.weight_inac[sel_t], self.weight]).reshape(E, P, 2)
         weight = weight * WEIGHT_DENSE_DISP
+        edge_valid = np.ones(E, bool)
 
-        di = exp[:, 2]
-        fill_ct = np.bincount(di, minlength=ND)
+        st = buf.sparse_tracks
+        if st is not None and st.enabled and not motion_only:
+            # the tracks' flow term: the edge rows again, with the keypoints
+            # splatted as targets where a track joins the two frames
+            t_trk, w_trk = st.compute_dense_disp_target_weight(
+                source_view_inds=exp[:, 1], source_frame_inds=buf.tstamp[exp[:, 0]],
+                target_view_inds=exp[:, 4], target_frame_inds=buf.tstamp[exp[:, 3]],
+                image_size=(buf.height, buf.width), dense_disp_size=(self.ht, self.wd))
+            target = torch.cat([target, torch.from_numpy(t_trk.reshape(E, P, 2)).to(self.device)])
+            weight = torch.cat([weight, torch.from_numpy(w_trk.reshape(E, P, 2)).to(self.device)
+                                * WEIGHT_TRACKS])
+            edge_valid = np.concatenate([edge_valid, w_trk.reshape(E, -1).sum(1) > 0])
+            exp = np.concatenate([exp, exp])
+            E = 2 * E
+
+        di = np.where(edge_valid, exp[:, 2], -1)
+        fill_ct = np.bincount(di[edge_valid], minlength=ND)
         slot_edge = ba.build_edge_slots(di, ND, max(int(fill_ct.max()), 1))
         idx = np.arange(N)
         pose_mask = (idx >= t0) & (idx < t1) & (not fixed_motion)
@@ -500,7 +517,7 @@ class FactorGraph:
             n_views=V, optimize_rig=optimize_rig,
         )
         common = (
-            torch.ones(E, dtype=torch.bool, device=self.device),
+            torch.as_tensor(edge_valid, device=self.device),
             self._t(slot_edge),
             torch.as_tensor(pose_mask, device=self.device),
             torch.as_tensor(disp_mask, device=self.device),

@@ -26,7 +26,8 @@ Two orderings, as in the JAX package:
 * the sequential, reference-exact one, taken whatever the two knobs say
   when the update function is marked ``host_only`` (an oracle that reads
   host state), as the JAX package takes it for update functions it cannot
-  trace.
+  trace, and when sparse tracks are on, as the JAX package leaves its fused
+  step for them.
 
 A rig caps ``keyframe_spec_depth`` at 1 (a late removal is single-view
 only) and submits its distance matrix after the step; a new slot's
@@ -68,7 +69,9 @@ class SLAMFrontend:
         if buffer.n_views > 1:
             self.spec_depth = min(self.spec_depth, 1)
             self.prox_spec = False
-        self.speculative = not getattr(update_fn, "host_only", False)
+        tracks = buffer.sparse_tracks
+        self.speculative = not (getattr(update_fn, "host_only", False)
+                                or (tracks is not None and tracks.enabled))
         self._dist_token = None
         # (removal distance, t1 when decided), oldest first, at most 2
         self._pending: list = []

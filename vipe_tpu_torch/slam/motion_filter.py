@@ -5,6 +5,9 @@ Every frame is encoded; one ConvGRU update against the last keyframe's
 features gives a flow delta whose mean magnitude gates keyframe creation.
 A rig's frame is its (V, h, w, 3) stack of views, scored view by view
 against the same views of the keyframe; the least of the V scores gates.
+With sparse tracks, a frame is also a keyframe when its keypoints moved
+more than twice the threshold on average since the last keyframe, or when
+more than a fifth of the tracks vanished since the previous frame scored.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..ops import corr as corr_ops
@@ -23,17 +27,24 @@ class _Token:
     image: torch.Tensor            # (V, h, w, 3) uint8
     fmap: torch.Tensor             # (V, ht, wd, 128)
     mask: Optional[torch.Tensor]   # (V, ht, wd) bool, True = invalid
+    frame_idx: int = 0             # submissions before this one
     first: bool = False
 
 
 class MotionFilter:
     def __init__(self, encode_features: Callable, encode_context: Callable,
-                 update_fn: Callable, thresh: float):
-        """``encode_*(images_nhwc)``; ``update_fn`` as in ``FactorGraph``."""
+                 update_fn: Callable, thresh: float, sparse_tracks=None):
+        """``encode_*(images_nhwc)``; ``update_fn`` as in ``FactorGraph``;
+        ``sparse_tracks``: a ``SparseTracks`` whose keypoint flow joins the
+        decision, or None."""
         self.encode_features = encode_features
         self.encode_context = encode_context
         self.update_fn = update_fn
         self.thresh = thresh
+        self.sparse_tracks = sparse_tracks
+        self.n_submitted = 0
+        self.last_kf_frame_idx = 0
+        self.last_n_sparse_tracks = 0
         self.initialized = False
         self.stacked = False  # rig frames: keep the V axis of the features
         self.f_fmap = self.f_net = self.f_inp = self.f_mask = None
@@ -66,10 +77,35 @@ class MotionFilter:
             per_view = flow_mag.mean((1, 2))
         return float(per_view.min())
 
+    def _sparse_score(self, frame_idx: int) -> float:
+        """The mean keypoint flow since the last keyframe, summed over the
+        views, plus 100 when more than 20 % of the tracks vanished."""
+        st = self.sparse_tracks
+        if st is None or not st.enabled:
+            return 0.0
+        score, n_tracks = 0.0, 0
+        for v in range(st.n_views):
+            kp = st.get_correspondences(v, frame_idx, self.last_kf_frame_idx)
+            n_tracks += len(kp)
+            if kp:
+                cur = st.get_observations(v, frame_idx, kp)
+                last = st.get_observations(v, self.last_kf_frame_idx, kp)
+                score += float(np.linalg.norm(cur - last, axis=-1).mean())
+        diff = n_tracks - self.last_n_sparse_tracks
+        if diff < 0 and self.last_n_sparse_tracks > 0 and -diff / self.last_n_sparse_tracks > 0.2:
+            score += 100.0
+        self.last_n_sparse_tracks = n_tracks
+        return score
+
     def _promote(self, token: _Token):
         self.f_net, self.f_inp = self.encode_context(token.image)
         self.f_fmap = token.fmap
         self.f_mask = token.mask
+
+    def _promote_kf(self, token: _Token):
+        self._promote(token)
+        self.last_kf_frame_idx = token.frame_idx
+        self.last_n_sparse_tracks = 0
 
     def submit(self, image, mask=None) -> _Token:
         """Encode one frame: ``image`` (h, w, 3) uint8, ``mask`` (ht, wd),
@@ -78,7 +114,8 @@ class MotionFilter:
         if not self.stacked:
             image = image[None]
             mask = None if mask is None else mask[None]
-        tok = _Token(image, self.encode_features(image), mask)
+        tok = _Token(image, self.encode_features(image), mask, self.n_submitted)
+        self.n_submitted += 1
         if not self.initialized:
             self.initialized = True
             tok.first = True
@@ -92,10 +129,11 @@ class MotionFilter:
         fixed = self._decision_fixed
         if fixed is not None:
             if fixed:
-                self._promote(token)
+                self._promote_kf(token)
             return fixed
-        if self._score(token.fmap) > self.thresh:
-            self._promote(token)
+        if (self._score(token.fmap) > self.thresh
+                or self._sparse_score(token.frame_idx) > self.thresh * 2):
+            self._promote_kf(token)
             return True
         return False
 

@@ -11,7 +11,12 @@ keyframe map.
 Besides the pinhole stream with no priors, a run takes MEI and panorama
 cameras, per-frame validity masks, streams that give poses (the frontend
 then keeps them fixed), a keyframe depth prior (``metric_depth``, built by
-the pipeline from ``slam.keyframe_depth``) and a fixed keyframe stride.
+the pipeline from ``slam.keyframe_depth``), a fixed keyframe stride,
+sparse keypoint tracks (``slam.sparse_tracks``: every frame tracked in pass
+1, their flow in the motion filter and the BA), the chunks' disparities
+solved in pass 2 (``slam.infill_dense_disp``) and live telemetry
+snapshots (``slam.visualize``, every ``visualize_every`` keyframes under
+``visualize_path``).
 
 A rig (a ``MultiviewVideoList``) runs V synchronised views of equal size
 and length as one system: each frame is the stack of its V views, the
@@ -39,23 +44,9 @@ from .frontend import SLAMFrontend
 from .inner_filler import InnerFiller
 from .interface import SLAMOutput
 from .motion_filter import MotionFilter
+from .sparse_tracks import build_sparse_tracks
 
 ENC_BATCH = 8  # pass-2 frames per feature-encoder call
-
-# config values this port does not implement yet (key → allowed value)
-_UNSUPPORTED = {
-    "visualize": False,
-    "sparse_tracks": None,
-    "infill_dense_disp": False,
-}
-
-
-def check_supported(config: dict):
-    """Raise ``NotImplementedError`` for any value the port does not run."""
-    for key, ok in _UNSUPPORTED.items():
-        val = config.get(key, ok)
-        if val != ok and not (ok is None and not val):
-            raise NotImplementedError(f"slam.{key}={val!r} is not ported yet")
 
 
 def mask_grid(mask: np.ndarray, ht: int, wd: int) -> torch.Tensor:
@@ -128,7 +119,6 @@ class SLAMSystem:
                  encode_context: Optional[Callable] = None,
                  metric_depth=None):
         self.config = dict(config or {})
-        check_supported(self.config)
         self.device = resolve_device(device)
         if update_fn is None:
             from ..models.droidnet import build_droidnet
@@ -213,17 +203,26 @@ class SLAMSystem:
             dense_disp_alpha=c.get("ba", {}).get("dense_disp_alpha", 0.001),
             device=self.device, n_views=V, rig=rig,
         )
+        sparse_tracks = buffer.sparse_tracks = build_sparse_tracks(c.get("sparse_tracks"), V)
         motion_filter = MotionFilter(self.encode_features, self.encode_context,
-                                     self.update_fn, thresh=c.get("filter_thresh", 2.4))
+                                     self.update_fn, thresh=c.get("filter_thresh", 2.4),
+                                     sparse_tracks=sparse_tracks)
         frontend = SLAMFrontend(buffer, self.update_fn, c)
         backend = SLAMBackend(buffer, self.update_fn, c, depth_model=self.metric_depth)
         filler = InnerFiller(buffer, self.update_fn, c)
+        telemetry = None
+        if c.get("visualize"):
+            from ..utils.telemetry import TelemetryWriter
+
+            telemetry = TelemetryWriter(c.get("visualize_path", "vipe_telemetry"),
+                                        name=raw[0].name(), every=c.get("visualize_every", 8))
         fbi = c.get("frontend_backend_iters", [16, 64, 256])
         kf_stride = c.get("keyframe_stride")
 
         # ----------------------------------------------------------- pass 1
         with profiling.stage("slam_pass1"):
             for frame_idx, frames in enumerate(zip(*streams)):
+                sparse_tracks.track_image(frame_idx, frames)
                 rgb = self._upload(frames)
                 mask = self._mask(frames, buffer)
                 token = motion_filter.submit(rgb, mask)
@@ -249,6 +248,8 @@ class SLAMSystem:
                         buffer.update_disps_sens(self.metric_depth,
                                                  frame_idx=buffer.n_frames - 1)
                 frontend.run()
+                if telemetry is not None and is_kf:
+                    telemetry.update(buffer)
                 if is_kf and any(buffer.n_frames - k in fbi for k in range(3)):
                     # pending removals may hold n_frames up to two high
                     frontend.resolve_pending()
@@ -263,6 +264,8 @@ class SLAMSystem:
         with profiling.stage("slam_backend"):
             backend.run(7)
             backend.run(c.get("backend_iters", 24), update_depth=False)
+        if telemetry is not None:
+            telemetry.update(buffer, force=True)
 
         # ----------------------------------------------------------- pass 2
         with profiling.stage("slam_pass2"):
@@ -272,17 +275,22 @@ class SLAMSystem:
 
             def flush():
                 new = [b[2] for b in batch if b[0] not in kf_slot]
-                fmaps = None
+                fmaps = nets = inps = None
                 if new:
                     # a rig's views go in frame-major: frame k's are [k·V, (k+1)·V)
-                    fmaps = self.encode_features(torch.stack(new) if V == 1 else torch.cat(new))
+                    rgbs = torch.stack(new) if V == 1 else torch.cat(new)
+                    fmaps = self.encode_features(rgbs)
+                    if filler.needs_context:
+                        nets, inps = self.encode_context(rgbs)
                 k = 0
                 for frame_idx, frames, rgb in batch:
                     if frame_idx in kf_slot:
                         buffer.append_keyframe_copy(kf_slot[frame_idx], frame_idx)
                     else:
-                        fmap = fmaps[k] if V == 1 else fmaps[k * V:(k + 1) * V]
-                        buffer.append_keyframe(frame_idx, rgb, fmap, None, None,
+                        rows = k if V == 1 else slice(k * V, (k + 1) * V)
+                        buffer.append_keyframe(frame_idx, rgb, fmaps[rows],
+                                               None if nets is None else nets[rows],
+                                               None if inps is None else inps[rows],
                                                mask=self._mask(frames, buffer),
                                                metric_depth=self._frame_meta(frames)[0])
                         k += 1
